@@ -4,10 +4,13 @@
 
 PY ?= python
 
-.PHONY: test bench native demo mnist humanflow sweep text clean
+.PHONY: test smoke bench native demo mnist humanflow sweep text clean
 
 test:
-	$(PY) -m pytest tests/ -q
+	$(PY) -m pytest tests/ -q -m 'not slow'
+
+smoke:
+	$(PY) chip_smoke.py
 
 bench:
 	$(PY) bench.py

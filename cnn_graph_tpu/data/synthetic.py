@@ -92,8 +92,8 @@ def city_graph(side: int, k: int = 8, seed: int = 0, jitter: float = 0.3,
     adjacency, RCM-ordered (bandable), normalized Laplacian.
 
     The shared recipe behind the production-scale benchmark and the
-    kernel diagnostics (bench.py, experiments/_compile_probe.py) — one
-    definition so they always measure the same graph.  Returns
+    smoke run (bench.py, chip_smoke.py) — one definition so they always
+    measure the same graph.  Returns
     ``(L, positions)`` with positions in RCM order.
     """
     import numpy as np

@@ -3,7 +3,7 @@
 Host-side precompute with capability parity with the reference's
 ``lib/coarsening.py`` (coarsen :5, metis :34, metis_one_level :119,
 compute_perm :167, perm_data :219, perm_adjacency :242).  The outputs feed
-the TPU models: ``graphs[i]`` become the per-pooling-level Laplacians and
+the device models: ``graphs[i]`` become the per-pooling-level Laplacians and
 ``perm`` reorders node signals so that size-p max/avg pooling over
 contiguous groups implements pooling on the coarsening tree
 (see ``cnn_graph_tpu.ops.pooling``).

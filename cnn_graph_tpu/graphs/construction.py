@@ -1,7 +1,7 @@
 """Host-side graph construction: grids, kNN graphs, Laplacians, spectra.
 
 Pure NumPy/SciPy precompute that runs once per experiment on the host; the
-resulting Laplacian is shipped to the TPU as a device operator (see
+resulting Laplacian is shipped to the accelerator as a device operator (see
 ``cnn_graph_tpu.ops.laplacian``).  Capability parity with the reference's
 ``lib/graph.py`` (grid :10, distance_* :22-52, adjacency :57, laplacian :117,
 lmax :139, fourier :148, lanczos :184, rescale_L :232, chebyshev :241,
@@ -15,6 +15,7 @@ import numpy as np
 import scipy.sparse
 import scipy.sparse.csgraph
 import scipy.sparse.linalg
+import scipy.spatial
 import scipy.spatial.distance
 
 __all__ = [
@@ -51,11 +52,12 @@ def knn(z: np.ndarray, k: int = 4, metric: str = "euclidean",
 
     Parity with ``graph.distance_scipy_spatial``/``distance_sklearn_metrics``
     (lib/graph.py:22-41) plus a scalable path replacing the reference's
-    approximate ``distance_lshforest`` (graph.py:44-52 — LSHForest was
-    removed from sklearn): ``algorithm='dense'`` materializes the full
-    distance matrix (exact, O(M^2) memory); ``'auto'``/``'ball_tree'``/
-    ``'kd_tree'`` use sklearn NearestNeighbors and scale to millions of
-    points.  Returns ``(dist, idx)`` of shape ``(M, k)`` excluding self.
+    approximate ``distance_lshforest`` (graph.py:44-52): ``algorithm=
+    'dense'`` materializes the full distance matrix (exact, O(M^2)
+    memory, any SciPy metric); ``'auto'``/``'kd_tree'``/``'ball_tree'``
+    query a ``scipy.spatial.cKDTree`` (exact, scales to millions of
+    points; Minkowski metrics only).  Returns ``(dist, idx)`` of shape
+    ``(M, k)`` excluding self.
     """
     if algorithm == "dense":
         d = scipy.spatial.distance.squareform(
@@ -64,13 +66,16 @@ def knn(z: np.ndarray, k: int = 4, metric: str = "euclidean",
         order = np.argsort(d, axis=1)[:, 1 : k + 1]
         dist = np.take_along_axis(d, order, axis=1)
         return dist, order
-
-    import sklearn.neighbors
-
-    nn = sklearn.neighbors.NearestNeighbors(
-        n_neighbors=k + 1, metric=metric, algorithm=algorithm
-    ).fit(z)
-    dist, idx = nn.kneighbors(z)
+    if algorithm not in ("auto", "kd_tree", "ball_tree"):
+        raise ValueError(f"unknown kNN algorithm {algorithm!r}")
+    p = {"euclidean": 2, "minkowski": 2, "manhattan": 1, "cityblock": 1,
+         "chebyshev": np.inf}.get(metric)
+    if p is None:
+        raise ValueError(
+            f"metric {metric!r} needs algorithm='dense' (the tree path "
+            "supports Minkowski metrics)"
+        )
+    dist, idx = scipy.spatial.cKDTree(z).query(z, k=k + 1, p=p)
     return dist[:, 1:], idx[:, 1:]
 
 
@@ -213,7 +218,7 @@ def chebyshev_basis(L: scipy.sparse.spmatrix, X: np.ndarray, K: int) -> np.ndarr
     """NumPy oracle for the Chebyshev recurrence: returns ``T_k(L) X`` for
     k < K, shape ``(K, M, N)``.  ``L`` must already be rescaled to [-1, 1].
     Semantics of ``graph.chebyshev`` (lib/graph.py:241-258); used as the
-    golden reference for the TPU filter kernels."""
+    golden reference for the device filter paths."""
     M, N = X.shape
     Xt = np.empty((K, M, N), X.dtype)
     Xt[0] = X
@@ -263,9 +268,9 @@ def lanczos_basis(L: scipy.sparse.spmatrix, X: np.ndarray, K: int) -> np.ndarray
 
 def bandwidth_reducing_permutation(W: scipy.sparse.spmatrix) -> np.ndarray:
     """Node ordering that clusters each row's neighbours near the diagonal
-    (reverse Cuthill-McKee).  TPU-specific precompute with no reference
-    counterpart: applied before block-sparse tiling so that the 128x128
-    Laplacian blocks shipped to the MXU are dense near the diagonal and
-    empty elsewhere (see ops/block_sparse.py)."""
+    (reverse Cuthill-McKee).  Precompute with no reference counterpart:
+    applied before block tiling so that the 128x128 Laplacian blocks are
+    dense near the diagonal and empty elsewhere — the banded format of
+    ops/laplacian.py."""
     perm = scipy.sparse.csgraph.reverse_cuthill_mckee(W.tocsr(), symmetric_mode=True)
     return np.asarray(perm)

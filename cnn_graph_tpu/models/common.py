@@ -70,14 +70,13 @@ def quantize_model_operators(model, sample_x: float = 1.0,
     so this only seeds the operators' default ``act_scale`` for direct
     ``spmm_q`` use).  Every single-chip format has a twin: banded
     (planar/city graphs), DENSE (the auto-chosen format for block-dense
-    scattered graphs like the 20NEWS embedding-kNN topology, DESIGN.md
-    §17), and BSR (scattered graphs above the dense budget) — mixed
+    scattered graphs like the 20NEWS embedding-kNN topology), and BSR
+    (scattered graphs above the dense budget) — mixed
     stacks are fine, each ``cheby_conv`` dispatches per operator.
     Sharded banded-halo / sparse-halo operators quantize to their
-    multi-chip int8 twins (int8 carries over the ICI exchange — half
-    the halo bytes; DESIGN.md §13).  BCOO (CPU-test fallback) passes
-    through unchanged.  See DESIGN.md §11 and
-    ``experiments/node_classification.py --int8``.
+    sharded int8 twins (int8 carries over the halo exchange — half
+    the halo bytes).  BCOO (CPU-test fallback) passes through
+    unchanged.  See ``experiments/node_classification.py --int8``.
     """
     from cnn_graph_tpu.ops.laplacian import (
         BandedLaplacian,

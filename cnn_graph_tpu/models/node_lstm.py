@@ -7,7 +7,8 @@ per-node LSTM trained on each region's own in/out-flow series — the
 85/15 train/test).  The reference would train M separate models in a
 Python loop; here all M node-LSTMs train in ONE jitted program: the
 parameters carry a leading node axis and every matmul is a batched
-``einsum`` over it (the TPU-native redesign of a model-per-node loop).
+``einsum`` over it (one batched program in place of a model-per-node
+loop).
 
 Weights use the gLSTM family's Uniform(-0.1, 0.1) initializer.  The MSE
 loss / ReLU prediction head contract matches the other regression models

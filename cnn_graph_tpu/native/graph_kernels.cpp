@@ -1,9 +1,9 @@
 // Host-side graph kernels for cnn_graph_tpu.
 //
-// The TPU does the filtering math; this library accelerates the host
+// The accelerator does the filtering math; this library accelerates the host
 // precompute whose reference implementation is pure-Python loops
 // (SURVEY.md §2.2 — the reference has no native code at all; these are the
-// TPU framework's own hot host paths):
+// framework's own hot host paths):
 //
 //   * graclus_one_level — randomized heavy-edge matching over a CSR graph
 //     (the sequential inner loop of multilevel coarsening; Python-loop

@@ -1,16 +1,16 @@
 """Spectral graph filters: the device compute path.
 
-TPU-native equivalents of the reference's filter layer (functional
+Device equivalents of the reference's filter layer (functional
 ``cheby_conv``/``fourier_conv`` in lib/filter.py:45/30 and the method-style
 ``chebyshev5``/``chebyshev2``/``fourier`` in lib/graph_conv.py:83-176).
 Everything here is a pure jittable function of ``(x, operator, params)``:
 
 * the Chebyshev recurrence runs as K-1 Laplacian products in whichever
-  format the operator carries (dense MXU matmul / block-sparse / BCOO),
-  followed by ONE large ``[B*M, K*F] @ [K*F, Fout]`` MXU matmul that fuses
+  format the operator carries (dense matmul / banded / block-sparse /
+  BCOO), followed by ONE large ``[B*M, K*F] @ [K*F, Fout]`` matmul that fuses
   the per-hop filter taps;
 * the Fourier filter is two dense basis matmuls around a per-node mix —
-  trivially MXU-shaped (the reference bakes U in as a graph constant,
+  plain matmuls (the reference bakes U in as a graph constant,
   filter.py:37; here U is just an array argument).
 
 Conventions: activations are ``[B, M, F]`` (batch, node, feature);
@@ -27,6 +27,7 @@ import functools
 import jax
 import jax.numpy as jnp
 
+from cnn_graph_tpu.ops.backend import on_gpu
 from cnn_graph_tpu.ops.laplacian import (
     BandedLaplacian,
     LaplacianOperator,
@@ -42,25 +43,6 @@ __all__ = [
     "lanczos_conv",
     "cheby_weights_from_flat",
 ]
-
-
-def _fused_eligible(L, fin: int, fout: int, col_tile: int = 512) -> bool:
-    """Shape guard for the fused Pallas conv: the column tile must hold
-    whole samples with 128-lane-aligned activation and output tiles, and
-    the working set must fit VMEM (see ops/pallas_cheby.py)."""
-    from cnn_graph_tpu.ops.pallas_cheby import fused_vmem_ok
-
-    # Both directions must tile cleanly: the custom VJP runs the kernel
-    # again with (fin, fout) swapped for dx.
-    for a, b in ((fin, fout), (fout, fin)):
-        if a > col_tile:
-            return False
-        s = max(col_tile // a, 1)
-        if (s * a) % 128 != 0 or (s * b) % 128 != 0 or s * b > 2048:
-            return False
-        if not fused_vmem_ok(L.m_padded, L.compute_dtype, col_tile=s * a):
-            return False
-    return True
 
 
 def _pad_nodes(x: jax.Array, m_padded: int) -> jax.Array:
@@ -109,7 +91,7 @@ def _cheby_basis_quant(x: jax.Array, L, K: int) -> jax.Array:
     The activation scale is computed AT RUNTIME from ``max|x|`` (one
     cheap reduce) — the kernel's epilogue works in input-scale units, so
     the scale never enters the kernel and no calibration pass is needed.
-    One quantize in, K-1 int8-resident hops at the MXU int8 rate, one
+    One quantize in, K-1 int8-resident hops, one
     dequantize out (to ``x.dtype``) for the tap matmul.
     """
     B, M, F = x.shape
@@ -145,7 +127,7 @@ def cheby_basis(x: jax.Array, L: LaplacianOperator, K: int) -> jax.Array:
     feature*batch axes flattened into the lane dimension, so each hop is a
     single wide matmul rather than a batched loop.  Quantized operators
     (``cheby_hop_q`` protocol) run the recurrence on int8-resident
-    carries — the inference/serving path (DESIGN.md §11).
+    carries — the inference/serving path.
     """
     if hasattr(L, "cheby_hop_q"):
         return _cheby_basis_quant(x, L, K)
@@ -153,7 +135,7 @@ def cheby_basis(x: jax.Array, L: LaplacianOperator, K: int) -> jax.Array:
     compute_dtype = getattr(L, "compute_dtype", x.dtype)
     xt = _pad_nodes(jnp.transpose(x, (1, 2, 0)).reshape(M, F * B), L.m_padded)
     # Run the recurrence in the operator's dtype (bf16 operators keep the
-    # whole chain on the MXU's native path; values are bounded by the
+    # whole chain in bf16; values are bounded by the
     # [-1, 1] spectral rescale so bf16 is well-conditioned here).
     xt = xt.astype(compute_dtype)
 
@@ -191,18 +173,17 @@ def cheby_conv_banded(x: jax.Array, L, w: jax.Array,
         s_k     = 2 L s_{k+1} - s_{k+2} + c_k,      c_k = g W_k^T
         dx      = s_0 = c_0 + L s_1 - s_2
 
-    run as ONE fused kernel pass per hop (``band_cheby_hop_c`` — the
-    ``+ c_k`` injection rides the emission), where autodiff through the
-    per-hop VJPs pays an un-fused SpMM plus TWO separate elementwise
-    passes per hop (the 2x-minus-x0 update and the c_k add) — the
-    3-rounds-flat training-path cost this replaces (VERDICT round-3
-    weak #2).  dW comes from the saved basis stack in one contraction.
+    run as ONE fused pass per hop (``BandedLaplacian.cheby_hop_c`` — on
+    the GPU the ``+ c_k`` injection rides the kernel's epilogue), where
+    autodiff through the per-hop VJPs pays an un-fused SpMM plus TWO
+    separate elementwise passes per hop (the 2x-minus-x0 update and the
+    c_k add).  dW comes from the saved basis in one contraction per hop.
 
     ``input_grad=False`` (static) skips the adjoint recurrence entirely
     and returns a zero ``dx``: a first-layer conv over RAW DATA never
-    needs an input cotangent, but XLA does not DCE the K-1 Pallas hop
-    calls on its own — at 50k/C=512/K=25 the skipped chain is ~7.3 ms
-    of a 15.6 ms train step (DESIGN.md §18).  Models set it on layer 0.
+    needs an input cotangent, but XLA does not DCE the K-1 kernel hop
+    calls on its own, and the skipped chain is about as long as the
+    forward.  Models set it on layer 0.
     """
     return _ccb_fwd_impl(x, L, w)[0]
 
@@ -214,7 +195,7 @@ def _ccb_chain(L, xt, K):
     for _ in range(2, K):
         basis.append(L.cheby_hop(basis[-1], basis[-2]))
     return basis  # K arrays [Mp, B*F] (NOT stacked: a jnp.stack here
-    # copies the whole ~K*Mp*B*F basis — ~1.3 GB, ~3 ms of pure HBM
+    # copies the whole ~K*Mp*B*F basis — ~1.3 GB of device-memory
     # traffic at the 50k/C=512/K=25 config — for zero benefit; the tap
     # and dW contractions stream the per-hop buffers directly)
 
@@ -232,10 +213,8 @@ def _ccb_fwd_impl(x, L, w):
     ).astype(cdt)
     S = _ccb_chain(L, xt, K)
     # Streaming taps: accumulate y += T_k x W_k per hop, each reading
-    # its basis buffer once — no stacked-basis materialization.  On TPU
-    # the dots run native bf16 x bf16 -> f32; the CPU backend (tests
-    # only) has no mixed-precision GEMM kernel, so operands are cast up.
-    tap_dt = jnp.float32 if jax.default_backend() == "cpu" else S[0].dtype
+    # its basis buffer once — no stacked-basis materialization.
+    tap_dt = S[0].dtype if on_gpu() else jnp.float32
     wc = w.astype(tap_dt)
     y = jnp.zeros((B, M, Fout), jnp.float32)
     for k in range(K):
@@ -254,8 +233,6 @@ def _ccb_fwd(x, L, w, input_grad):
 
 
 def _ccb_bwd(input_grad, res, g):
-    from cnn_graph_tpu.ops.pallas_band import band_cheby_hop_c
-
     S, L, w, x_token = res
     x_dtype = x_token.dtype
     K, Fin, Fout = w.shape
@@ -265,9 +242,9 @@ def _ccb_bwd(input_grad, res, g):
     cdt = L.compute_dtype
 
     # dW[k, f, o] = sum_{b, m} S[k, m, b, f] g[b, m, o], streaming each
-    # per-hop basis buffer (S is a LIST — see _ccb_chain).  Same backend
-    # dtype gate as the forward taps (CPU lacks mixed-precision GEMMs).
-    tap_dt = jnp.float32 if jax.default_backend() == "cpu" else S[0].dtype
+    # per-hop basis buffer (S is a LIST — see _ccb_chain), in the same
+    # tap dtype as the forward.
+    tap_dt = S[0].dtype if on_gpu() else jnp.float32
     gc = g.astype(tap_dt)
     dW = jnp.stack([
         jnp.einsum("mbf,bmo->fo",
@@ -302,12 +279,12 @@ def _ccb_bwd(input_grad, res, g):
         s0 = C[0] + L.matmul(C[1])
     else:
         # s_{K-2} = 2 L s_{K-1} + c_{K-2}: hop against a zero x0.
-        s_next = band_cheby_hop_c(L, C[K - 1], jnp.zeros_like(C[K - 1]),
-                                  C[K - 2])
+        s_next = L.cheby_hop_c(C[K - 1], jnp.zeros_like(C[K - 1]),
+                               C[K - 2])
         s_next2 = C[K - 1]
         for k in range(K - 3, 0, -1):
             s_next, s_next2 = (
-                band_cheby_hop_c(L, s_next, s_next2, C[k]), s_next
+                L.cheby_hop_c(s_next, s_next2, C[k]), s_next
             )
         s0 = C[0] + L.matmul(s_next) - s_next2
 
@@ -328,18 +305,13 @@ def cheby_conv(x: jax.Array, L: LaplacianOperator, w: jax.Array,
 
     Equivalent computation to the reference's ``cheby_conv``
     (lib/filter.py:45-95) / ``chebyshev5`` (lib/graph_conv.py:144-176):
-    y = sum_k T_k(L) x W_k, with the K taps folded into one MXU matmul.
+    y = sum_k T_k(L) x W_k, with the K taps folded into one matmul.
 
     ``input_grad=False`` (static) declares that no cotangent for ``x``
     will be consumed (a first-layer conv over raw data) — the banded
     path then skips its backward adjoint recurrence, ~half the train
     step at 50k (see ``cheby_conv_banded``); other formats ignore it
     (their dx comes from XLA-differentiated matmuls that DCE cleanly).
-
-    (An XLA-level "streaming" variant that accumulated per-hop taps from a
-    transposed layout was measured at parity for steady-state but with a
-    ~100x compile-time blowup from 25 unrolled batched dots — the fused
-    low-memory path is the Pallas kernel in ops/pallas_cheby.py instead.)
     """
     K, Fin, Fout = w.shape
     B, M, F = x.shape
@@ -358,17 +330,6 @@ def cheby_conv(x: jax.Array, L: LaplacianOperator, w: jax.Array,
         # materializes inside ONE shard_map region already.
         return _cheby_conv_quant_stream(x, L, w)
 
-    # bf16 operators use a smaller column tile: the fused kernel's VMEM
-    # working set at tile 512 exceeds the 16MB scoped limit once XLA also
-    # places the output block there (measured OOM by 1.6MB at M=976).
-    fused_tile = 512 if L.compute_dtype == jnp.float32 else 256
-    if getattr(L, "use_fused", False) and _fused_eligible(
-        L, Fin, Fout, col_tile=fused_tile
-    ):
-        from cnn_graph_tpu.ops.pallas_cheby import cheby_conv_fused
-
-        return cheby_conv_fused(x, L, w, col_tile=fused_tile)
-
     basis = cheby_basis(x, L, K)  # [K, B, M, Fin] in L.compute_dtype
     return jnp.einsum(
         "kbmf,kfo->bmo",
@@ -386,7 +347,7 @@ def lanczos_basis_device(x: jax.Array, L: LaplacianOperator,
     oracle ``graphs.construction.lanczos_basis`` (reference:
     lib/graph.py:184-229 — the basis behind the ``lanczos2`` filter
     string, lib/models.py:40): runs K-step Lanczos on every signal
-    column (the ``F*B`` flattened lane axis, one wide ``L @ V`` MXU
+    column (the ``F*B`` flattened lane axis, one wide ``L @ V``
     matmul per step), diagonalizes the N tridiagonal K x K matrices
     with one batched ``eigh``, and rotates back.
 
@@ -451,7 +412,7 @@ def lanczos_conv(x: jax.Array, L: LaplacianOperator, w: jax.Array) -> jax.Array:
     reference's named-but-dormant ``lanczos2`` filter option
     (lib/models.py:40; its basis lib/graph.py:184-229; the single call
     site is commented out at nips2016/mnist.py:130-131).  Taps fold
-    into one MXU matmul exactly like ``cheby_conv``.
+    into one matmul exactly like ``cheby_conv``.
     """
     K, Fin, Fout = w.shape
     B, M, F = x.shape

@@ -2,31 +2,32 @@
 
 The reference keeps the rescaled Laplacian as a ``tf.SparseTensor`` and
 multiplies it with ``tf.sparse_tensor_dense_matmul`` inside the Chebyshev
-recurrence (lib/filter.py:81,85; lib/graph_conv.py:163-169).  On TPU a
-row-gather SpMM is the wrong shape for the hardware; instead we ship the
-Laplacian in one of three formats chosen by graph size:
+recurrence (lib/filter.py:81,85; lib/graph_conv.py:163-169).  Here the
+Laplacian ships in one of four formats chosen by graph shape:
 
-* ``dense``  — zero-padded dense ``[Mp, Mp]`` matrix; the recurrence becomes
-  plain MXU matmuls.  Fastest for small graphs (Mp <= ~2k) where the dense
-  FLOPs are cheaper than any gather.
-* ``bsr``    — block-sparse rows: the matrix is tiled into dense
-  ``bs x bs`` blocks (bs = 128, the MXU tile) and only nonzero blocks are
-  stored.  Combined with a bandwidth-reducing node ordering
-  (graphs/construction.py:bandwidth_reducing_permutation) a kNN graph's
-  blocks hug the diagonal, so the SpMM is a short sequence of dense MXU
-  matmuls plus a segment-sum — no scalar gathers.  A Pallas kernel
-  (ops/pallas_spmm.py) implements the same contraction with double-buffered
-  DMA for large graphs.
-* ``bcoo``   — ``jax.experimental.sparse`` fallback, mainly for CPU tests.
+* ``dense``  — zero-padded dense ``[Mp, Mp]`` matrix; the recurrence is
+  plain matmuls.  Small graphs, and scattered graphs whose 128-blocks
+  are mostly occupied.
+* ``banded`` — RCM-ordered kNN/planar graphs are block-BANDED: each
+  block-row touches a short, monotonically advancing window of column
+  blocks.  Stored as a dense band of ``128 x 128`` blocks; on the GPU
+  the hop runs the Triton kernel of ``ops/pallas_band.py``, elsewhere
+  XLA window einsums.
+* ``bsr``    — block-sparse rows: dense ``128 x 128`` tiles at nonzero
+  positions, block rows grouped by tile count (``pack_bsr_groups``),
+  each group contracted by a window gather and one batched matmul.
+  Scattered graphs above the dense budget.
+* ``bcoo``   — ``jax.experimental.sparse`` fallback.
 
-All operators are pytrees, so they can be closed over or passed through
-``jax.jit`` / ``shard_map`` like any other array bundle.
+All operators are pytrees, so they pass through ``jax.jit`` /
+``shard_map`` like any other array bundle.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 from typing import Any
 
 import jax
@@ -35,6 +36,7 @@ import numpy as np
 import scipy.sparse
 
 from cnn_graph_tpu.graphs.construction import rescale_laplacian
+from cnn_graph_tpu.ops.backend import band_kernel
 
 __all__ = [
     "zero_cotangent",
@@ -58,7 +60,8 @@ __all__ = [
     "choose_band_levels",
 ]
 
-MXU_TILE = 128
+BLOCK = 128  # tile edge of the banded and block-sparse formats
+ROWS_PER_STEP = 8  # block-rows per super-step of the ragged band layout
 
 
 def _round_up(x: int, m: int) -> int:
@@ -87,7 +90,7 @@ class ChebyHopMixin:
                   donate: bool = False) -> jax.Array:
         # ``donate`` is accepted (and ignored) everywhere so chain
         # drivers can request in-place hops uniformly; only the banded
-        # Pallas paths act on it.
+        # kernel acts on it.
         del donate
         return (2.0 * self.matmul(x1) - x0).astype(x1.dtype)
 
@@ -121,26 +124,37 @@ class QuantOpMixin:
         return self.dequantize(self.spmm_q(self.quantize(x)), x.dtype)
 
 
+def quant_emit(acc: jax.Array, scale: float,
+               x0_q: jax.Array | None) -> jax.Array:
+    """Int8 emission shared by every quantized XLA path: dequantise the
+    int32 accumulator, apply the hop update in input-scale units, round
+    half to even and saturate.  The banded kernel's epilogue computes the
+    same float32 operations in the same order (bit-identical)."""
+    y = scale * acc.astype(jnp.float32)
+    if x0_q is not None:
+        y = 2.0 * y - x0_q.astype(jnp.float32)
+    return jnp.clip(jnp.round(y), -127.0, 127.0).astype(jnp.int8)
+
+
 @functools.partial(
     jax.tree_util.register_dataclass,
     data_fields=["mat"],
-    meta_fields=["m", "m_padded", "nnz", "use_fused"],
+    meta_fields=["m", "m_padded", "nnz"],
 )
 @dataclasses.dataclass(frozen=True)
 class DenseLaplacian(ChebyHopMixin):
     """Rescaled Laplacian as a zero-padded dense matrix.
 
-    Storing the matrix in bfloat16 (``device_laplacian(dtype=jnp.bfloat16)``)
-    runs the recurrence on the MXU's native bf16 path (~4x the fp32 rate on
-    v5e); the Chebyshev carry then also runs in bf16 (values are bounded by
-    the [-1, 1] spectral rescale, so the recurrence is well-conditioned).
+    A bfloat16 matrix (``device_laplacian(dtype=jnp.bfloat16)``) runs the
+    recurrence in bf16 with float32 accumulation; the Chebyshev carry
+    then also runs in bf16 (values are bounded by the [-1, 1] spectral
+    rescale, so the recurrence is well-conditioned).
     """
 
     mat: jax.Array  # [Mp, Mp]
     m: int
     m_padded: int
     nnz: int
-    use_fused: bool = False  # fused Pallas conv when the call shape fits
 
     @property
     def compute_dtype(self):
@@ -151,67 +165,60 @@ class DenseLaplacian(ChebyHopMixin):
         return jnp.dot(self.mat, x, preferred_element_type=x.dtype)
 
 
+def bsr_windows(blocks, block_cols, row_pos, groups, block_shape, x,
+                acc_dtype):
+    """``L @ x`` on the grouped block-sparse-row layout
+    (``pack_bsr_groups``), accumulated in ``acc_dtype``: per group,
+    gather each row's x tiles and contract them in one batched matmul
+    (batch = the group's rows, contraction = its level's tiles); then
+    put the rows back in block-row order.
+
+    A flat formulation (one matmul per stored tile, then a segment-sum
+    over block-rows) took over 90 s to compile on an H100 at 2,578 tiles
+    (PERF.md); a static loop over a few groups compiles like the banded
+    path."""
+    br, bc = block_shape
+    C = x.shape[1]
+    xb = x.reshape(-1, bc, C)
+    outs, off = [], 0
+    for rows, k in groups:
+        blk = blocks[off: off + rows * k].reshape(rows, k, br, bc)
+        cols = block_cols[off: off + rows * k].reshape(rows, k)
+        wins = jnp.take(xb, cols, axis=0)  # [rows, k, bc, C]
+        outs.append(jnp.einsum("rkij,rkjc->ric", blk, wins,
+                               preferred_element_type=acc_dtype))
+        off += rows * k
+    y = jnp.take(jnp.concatenate(outs), row_pos, axis=0)
+    return y.reshape(-1, C)
+
+
 @functools.partial(
     jax.tree_util.register_dataclass,
-    data_fields=["blocks", "block_rows", "block_cols", "block_rowptr",
-                 "cs_meta", "cs_gcols", "cs_gcolptr", "cs_groupptr"],
-    meta_fields=["m", "m_padded", "nnz", "block_shape", "use_pallas",
-                 "row_max", "rows_per_step", "group_max", "col_stream"],
+    data_fields=["blocks", "block_cols", "row_pos"],
+    meta_fields=["m", "m_padded", "nnz", "block_shape", "groups",
+                 "n_tiles"],
 )
 @dataclasses.dataclass(frozen=True)
 class BlockSparseLaplacian(ChebyHopMixin):
-    """Rescaled Laplacian as dense MXU-tile blocks at nonzero positions.
+    """Rescaled Laplacian as dense tiles at nonzero block positions.
 
-    ``blocks[i]`` is the dense ``br x bc`` tile at block coordinates
-    ``(block_rows[i], block_cols[i])``; blocks are sorted by row so the
-    row-wise reduction is a segment-sum over a sorted index.
-    ``block_rowptr`` is the block-CSR row extent used by the Pallas kernel.
-
-    Block shape trades fill-in against tile alignment: (128, 128) tiles are
-    MXU-square but nearly empty for kNN-sparse rows; short-wide (8, 128)
-    tiles keep the 128-lane contraction while cutting padded FLOPs ~8x
-    (each tile still maps to one MXU pass with 8 output sublanes).
+    Block rows are grouped by tile count (``pack_bsr_groups``): group
+    ``(rows, k)`` owns the next ``rows * k`` entries of the flat
+    ``blocks``/``block_cols``, each of its rows padded to ``k`` tiles
+    with zero tiles at column 0.  ``row_pos[i]`` is block-row ``i``'s
+    row in the groups' outputs.  ``n_tiles`` counts the nonzero tiles;
+    ``blocks`` holds fewer than 1.5x as many.
     """
 
-    blocks: jax.Array  # [nb (+ row_max zero-pad), br, bc]
-    block_rows: jax.Array  # [nb] int32, sorted ascending
-    block_cols: jax.Array  # [nb] int32
-    block_rowptr: jax.Array  # [n_row_blocks + 1] int32
+    blocks: jax.Array  # [T, br, bc]
+    block_cols: jax.Array  # [T] int32
+    row_pos: jax.Array  # [n_rb] int32
     m: int
     m_padded: int
     nnz: int
     block_shape: tuple
-    use_pallas: bool
-    # Chunked-DMA mode: when > 0, ``blocks`` carries ``row_max`` trailing
-    # zero blocks and the Pallas kernel fetches each block-row's extent
-    # [rowptr[i], rowptr[i]+row_max) as ONE contiguous slab DMA
-    # (amortizing the fixed per-block transfer cost) instead of one DMA
-    # per block; the tail pad makes the static-size overrun safe.
-    row_max: int = 0
-    # Grouped-row mode (the banded kernel's lesson applied to BSR): when
-    # rows_per_step (G) > 1, each grid step processes G consecutive
-    # block-rows, whose blocks — contiguous in block-CSR order — arrive
-    # as ONE double-buffered slab DMA of ``group_max`` blocks (the max
-    # group extent; ``blocks`` carries a group_max zero tail for the
-    # static overrun).  Amortizes the per-grid-step fixed cost (~1.7 us
-    # pipeline + scalar bookkeeping) that dominated the per-block
-    # pipeline at ~6-7 blocks/row (DESIGN.md §10/§17 "246 ns/block").
-    rows_per_step: int = 1
-    group_max: int = 0
-    # Column-streamed mode (the scattered-graph kernel): blocks are
-    # reordered (column, row) WITHIN each G-row group and each distinct
-    # column's x tile is fetched once per group — x traffic drops from
-    # O(blocks) to O(groups x distinct-cols), the dominant HBM cost of
-    # scattered BSR (13.0 ms/spmm measured per-block at 50k
-    # embedding-kNN).  block_rows is then NOT sorted within groups
-    # (fallbacks use an unsorted segment_sum); block_rowptr stays valid
-    # at group boundaries only.  cs_* carry the kernel metadata
-    # (ops.laplacian.colstream_order).
-    col_stream: bool = False
-    cs_meta: jax.Array | None = None
-    cs_gcols: jax.Array | None = None
-    cs_gcolptr: jax.Array | None = None
-    cs_groupptr: jax.Array | None = None
+    groups: tuple  # ((rows, tiles per row), ...), descending tiles
+    n_tiles: int
 
     @property
     def block_size(self):  # square-block compatibility accessor
@@ -221,51 +228,31 @@ class BlockSparseLaplacian(ChebyHopMixin):
     def compute_dtype(self):
         return self.blocks.dtype
 
-    def cheby_hop(self, x1: jax.Array, x0: jax.Array, *,
-                  donate: bool = False) -> jax.Array:
-        del donate
-        if self.use_pallas and (self.rows_per_step > 1
-                                or self.col_stream):
-            from cnn_graph_tpu.ops.pallas_spmm import bsr_cheby_hop
-
-            return bsr_cheby_hop(self, x1, x0)
-        return super().cheby_hop(x1, x0)
-
     def matmul(self, x: jax.Array) -> jax.Array:
         """``L @ x`` for ``x`` of shape ``[Mp, C]``."""
-        if self.use_pallas:
-            from cnn_graph_tpu.ops.pallas_spmm import bsr_spmm
-
-            return bsr_spmm(self, x)
-        br, bc = self.block_shape
-        n_row_blocks = self.m_padded // br
-        xb = x.reshape(self.m_padded // bc, bc, -1)
-        gathered = jnp.take(xb, self.block_cols, axis=0)  # [nb, bc, C]
-        # blocks may carry a row_max zero-pad tail for the chunked
-        # kernel's static slab overrun; the fallback contracts the real
-        # prefix only.
-        partial = jnp.einsum(
-            "nij,njc->nic", self.blocks[: self.block_cols.shape[0]],
-            gathered, preferred_element_type=x.dtype,
-        )
-        yb = jax.ops.segment_sum(
-            partial, self.block_rows, num_segments=n_row_blocks,
-            indices_are_sorted=not self.col_stream,
-        )
-        return yb.reshape(x.shape).astype(x.dtype)
+        return bsr_windows(self.blocks, self.block_cols, self.row_pos,
+                           self.groups, self.block_shape, x,
+                           x.dtype).astype(x.dtype)
 
 
-def _ragged_fallback_windows(band, base, sched, levels, G, block_shape,
-                             m_padded, x, acc_dtype):
-    """XLA oracle for the ragged banded layout: a static Python loop over
-    super-steps, each an einsum over that step's ``[G, W_s, br, bc]``
-    slab.  ``sched``/``levels`` are static metadata, so this traces to
-    nsb fused einsums — fine for the CPU tests and as the gradient-able
-    fallback; the Pallas kernel is the production path."""
+def band_windows(band, base, sched, levels, G, block_shape, x, acc_dtype):
+    """XLA path for the banded layouts, accumulated in ``acc_dtype`` —
+    the CPU path, the float32 path and the kernel's plain reference.
+
+    Uniform band ``[nbr, W, br, bc]``: one window gather and one einsum.
+    Ragged flat band: a static Python loop over super-steps, each an
+    einsum over that step's ``[G, W_s, br, bc]`` slab (``sched`` and
+    ``levels`` are static metadata)."""
     br, bc = block_shape
-    offs, lvl_idx, _ = sched
     n_cb = x.shape[0] // bc
     xb = x.reshape(n_cb, bc, -1)
+    if not levels:
+        W = band.shape[1]
+        wins = jnp.take(xb, base[:, None] + jnp.arange(W)[None, :], axis=0)
+        y = jnp.einsum("iwab,iwbc->iac", band, wins,
+                       preferred_element_type=acc_dtype)
+        return y.reshape(x.shape)
+    offs, lvl_idx = sched
     outs = []
     for s in range(len(offs)):
         w = levels[lvl_idx[s]]
@@ -283,56 +270,40 @@ def _ragged_fallback_windows(band, base, sched, levels, G, block_shape,
 
 @functools.partial(
     jax.tree_util.register_dataclass,
-    data_fields=["band", "base", "bands_dkw", "sched_dkw"],
-    meta_fields=["m", "m_padded", "nnz", "block_shape", "ring_slots",
-                 "rows_per_step", "use_pallas", "sched", "levels"],
+    data_fields=["band", "base", "rows"],
+    meta_fields=["m", "m_padded", "nnz", "block_shape", "rows_per_step",
+                 "sched", "levels"],
 )
 @dataclasses.dataclass(frozen=True)
 class BandedLaplacian(ChebyHopMixin):
     """Rescaled Laplacian as a block-BANDED dense band.
 
-    ``band[i, d]`` is the dense ``br x bc`` block at block coordinates
-    ``(i, base[i] + d)``; blocks outside the true sparsity are zero.
-    RCM-ordered kNN/planar graphs pack into narrow bands (W ~ 9-11 blocks
-    at 50k-100k nodes at ~77% fill), which the Pallas sliding-window
-    kernel (ops/pallas_band.py) streams at near the HBM roofline — the
-    general BSR kernel pays a fixed DMA cost per block instead.
+    UNIFORM layout (``levels`` empty): ``band[i, d]`` is the dense
+    ``br x bc`` block at block coordinates ``(i, base[i] + d)``; blocks
+    outside the true sparsity are zero.  ``base`` is monotone
+    non-decreasing (pack_banded enforces it by suffix-min).
 
-    ``base`` is monotone non-decreasing (pack_banded enforces it by
-    suffix-min), which the kernel's fetch bookkeeping relies on.
-    ``ring_slots`` sizes the kernel's x ring buffer
-    (>= W + max step between consecutive bases).
+    RAGGED layout (``levels`` non-empty, built by ``pack_banded_ragged``):
+    the band is stored FLAT ``[total_blocks, br, bc]`` and each
+    ``rows_per_step``-row super-step carries its own width W_s from the
+    static ``levels`` palette, cutting the blocks the uniform max width
+    pads in.  ``sched = (offsets, level_indices)`` is static metadata so
+    the XLA path can trace it.
 
-    RAGGED mode (``levels`` non-empty, built by ``pack_banded_ragged``):
-    the band is stored FLAT ``[total_blocks, br, bc]`` and each G-row
-    super-step carries its own width W_s from the static ``levels``
-    palette — cutting the ~20% of band FLOPs the uniform max-width pads
-    in (DESIGN.md §12).  ``sched`` is the static ``(offsets,
-    level_indices, column_high_water)`` schedule, stored as metadata so
-    the XLA fallback can trace it and the kernel gets it as a tiny
-    constant scalar-prefetch array.
+    ``rows`` ``[2, nbr]`` int32 is each block-row's (offset into the
+    flat band, width) — what the GPU kernel walks; both layouts have it.
     """
 
     band: jax.Array  # [nbr, W, br, bc], or [total, br, bc] when ragged
     base: jax.Array  # [nbr] int32, monotone non-decreasing
+    rows: jax.Array  # [2, nbr] int32: (flat offset, width) per block-row
     m: int
     m_padded: int
     nnz: int
     block_shape: tuple
-    ring_slots: int
-    rows_per_step: int  # block-rows per kernel grid step (G)
-    use_pallas: bool
-    sched: tuple = ()   # ragged: ((off...), (lvl_idx...), (hiwater...))
+    rows_per_step: int  # block-rows per ragged super-step (G)
+    sched: tuple = ()   # ragged: ((offset...), (level index...))
     levels: tuple = ()  # ragged: ascending distinct super-step widths
-    # Deep-K window layout (the default Pallas path when present): one
-    # array per width level, [n_rows_l, br, W_l*bc] — each block-row's
-    # blocks side by side in the LANE dim, so the kernel issues ONE
-    # wide MXU dot per row instead of W_l taps (measured +10% int8 on
-    # the 50k chain, bit-exact; DESIGN.md §20).  sched_dkw row 0 holds
-    # per-level ROW offsets (rows 1-2 as in ``sched``).  The flat
-    # ``band`` stays as the oracle/fallback layout.
-    bands_dkw: tuple | None = None
-    sched_dkw: jax.Array | None = None
 
     @property
     def band_width(self):
@@ -344,36 +315,34 @@ class BandedLaplacian(ChebyHopMixin):
 
     def cheby_hop(self, x1: jax.Array, x0: jax.Array, *,
                   donate: bool = False) -> jax.Array:
-        if self.use_pallas:
+        if band_kernel(self.band.dtype):
             from cnn_graph_tpu.ops.pallas_band import band_cheby_hop
 
-            return band_cheby_hop(self, x1, x0, donate=donate)
+            return band_cheby_hop(self, x1, x0, donate)
         return super().cheby_hop(x1, x0)
+
+    def cheby_hop_c(self, x1: jax.Array, x0: jax.Array,
+                    c: jax.Array) -> jax.Array:
+        """Adjoint-chain hop ``2 (L @ x1) - x0 + c`` (one kernel pass on
+        the GPU); used inside ``filters.cheby_conv_banded``'s backward."""
+        if band_kernel(self.band.dtype):
+            from cnn_graph_tpu.ops.pallas_band import band_cheby_hop_c
+
+            return band_cheby_hop_c(self, x1, x0, c)
+        return (2.0 * self.matmul(x1) - x0 + c).astype(x1.dtype)
 
     def matmul(self, x: jax.Array) -> jax.Array:
         """``L @ x`` for ``x`` of shape ``[Mp, C]``."""
-        if self.use_pallas:
+        if band_kernel(self.band.dtype):
             from cnn_graph_tpu.ops.pallas_band import band_spmm
 
             return band_spmm(self, x)
-        # float32 accumulation matches the Pallas kernel's accumulator,
-        # so these fallbacks stay valid oracles for bf16 operands.
-        if self.levels:
-            y = _ragged_fallback_windows(
-                self.band, self.base, self.sched, self.levels,
-                self.rows_per_step, self.block_shape, self.m_padded, x,
-                jnp.float32,
-            )
-            return y.astype(x.dtype)
-        nbr, W, br, bc = self.band.shape
-        xb = x.reshape(self.m_padded // bc, bc, -1)
-        cols = self.base[:, None] + jnp.arange(W)[None, :]  # [nbr, W]
-        wins = jnp.take(xb, cols, axis=0)  # [nbr, W, bc, C]
-        y = jnp.einsum(
-            "iwab,iwbc->iac", self.band, wins,
-            preferred_element_type=jnp.float32,
-        )
-        return y.reshape(x.shape).astype(x.dtype)
+        # float32 accumulation matches the kernel's accumulator, so this
+        # path is a valid oracle for bf16 operands.
+        return band_windows(
+            self.band, self.base, self.sched, self.levels,
+            self.rows_per_step, self.block_shape, x, jnp.float32,
+        ).astype(x.dtype)
 
 
 @functools.partial(
@@ -400,10 +369,9 @@ class BCOOLaplacian(ChebyHopMixin):
 
 @functools.partial(
     jax.tree_util.register_dataclass,
-    data_fields=["band", "base", "bands_dkw", "sched_dkw"],
-    meta_fields=["m", "m_padded", "nnz", "block_shape", "ring_slots",
-                 "rows_per_step", "use_pallas", "band_scale", "act_scale",
-                 "headroom", "sched", "levels"],
+    data_fields=["band", "base", "rows"],
+    meta_fields=["m", "m_padded", "nnz", "block_shape", "rows_per_step",
+                 "band_scale", "act_scale", "headroom", "sched", "levels"],
 )
 @dataclasses.dataclass(frozen=True)
 class QuantBandedLaplacian(QuantOpMixin):
@@ -414,14 +382,12 @@ class QuantBandedLaplacian(QuantOpMixin):
     uniformly); activations ride ONE scale ``s_x`` across the whole
     Chebyshev recurrence, valid because |T_k(lambda)| <= 1 on the
     rescaled spectrum keeps the carries near the input's range (the
-    ``headroom`` factor absorbs the rest).  Crucially ``s_x`` never
-    enters the kernel — the emission epilogue is ``y/s_x = band_scale *
-    acc`` in input-scale units — so callers may pass a TRACED per-call
-    scale (``ops.filters.cheby_basis`` computes ``max|x|`` at runtime;
-    no calibration pass needed).  Taps accumulate in pure int32 at the
-    MXU's int8 rate — measured 95.7 TOP/s per tap vs 73 TFLOP/s bf16
-    (experiments/_probe.py mxu; DESIGN.md §11); per-tap float rescaling
-    would cost 13% and is avoided by the shared scale.
+    ``headroom`` factor absorbs the rest).  ``s_x`` never enters the
+    kernel — the emission epilogue is ``y/s_x = band_scale * acc`` in
+    input-scale units — so callers may pass a TRACED per-call scale
+    (``ops.filters.cheby_basis`` computes ``max|x|`` at runtime; no
+    calibration pass needed).  Taps accumulate in pure int32, with no
+    per-tap float rescaling.
 
     Inference-only: no VJP (train in bf16/f32, quantize for serving).
     The recurrence runs on int8 carries via ``cheby_hop_q``; ``matmul``
@@ -430,22 +396,19 @@ class QuantBandedLaplacian(QuantOpMixin):
     (and therefore ChebNet / NodeClassifier inference) directly.
     """
 
-    band: jax.Array   # [nbr, W, br, bc] int8
+    band: jax.Array   # int8, layout as BandedLaplacian
     base: jax.Array   # [nbr] int32, monotone
+    rows: jax.Array   # [2, nbr] int32
     m: int
     m_padded: int
     nnz: int
     block_shape: tuple
-    ring_slots: int
     rows_per_step: int
-    use_pallas: bool
     band_scale: float  # dequant scale of the band
     act_scale: float   # default activation scale (quantize/dequantize)
     headroom: float = 2.0  # saturation margin for recurrence carries
     sched: tuple = ()   # ragged schedule (see BandedLaplacian)
     levels: tuple = ()
-    bands_dkw: tuple | None = None  # deep-K window layout (see float twin)
-    sched_dkw: jax.Array | None = None
 
     @property
     def band_width(self):
@@ -453,56 +416,23 @@ class QuantBandedLaplacian(QuantOpMixin):
 
     def _call(self, x_q: jax.Array, x0_q: jax.Array | None,
               donate: bool = False) -> jax.Array:
-        if self.use_pallas:
-            from cnn_graph_tpu.ops.pallas_band import (
-                banded_call, banded_call_dkw, banded_call_ragged,
-            )
+        if band_kernel(self.band.dtype):
+            from cnn_graph_tpu.ops.pallas_band import banded_call
 
-            if self.bands_dkw is not None:
-                return banded_call_dkw(
-                    self.bands_dkw, self.base, self.sched_dkw, x_q,
-                    x0_q, levels=self.levels, ring=self.ring_slots,
-                    G=self.rows_per_step, out_rows=self.m_padded,
-                    band_scale=self.band_scale, donate_x0=donate,
-                )
-            if self.levels:
-                return banded_call_ragged(
-                    self.band, self.base,
-                    jnp.asarray(np.asarray(self.sched, np.int32)),
-                    x_q, x0_q, levels=self.levels, ring=self.ring_slots,
-                    G=self.rows_per_step, out_rows=self.m_padded,
-                    band_scale=self.band_scale, donate_x0=donate,
-                )
             return banded_call(
-                self.band, self.base, x_q, x0_q, ring=self.ring_slots,
-                G=self.rows_per_step, out_rows=self.m_padded,
-                band_scale=self.band_scale, donate_x0=donate,
+                self.band.reshape(-1, *self.block_shape), self.base,
+                self.rows, x_q, x0_q, out_rows=self.m_padded,
+                max_width=self.band_width, band_scale=self.band_scale,
+                donate_x0=donate,
             )
-        # XLA fallback mirrors the kernel's integer arithmetic exactly:
-        # int32 window taps, dequant + round at emission.
-        if self.levels:
-            acc = _ragged_fallback_windows(
-                self.band, self.base, self.sched, self.levels,
-                self.rows_per_step, self.block_shape, self.m_padded, x_q,
-                jnp.int32,
-            )
-        else:
-            nbr, W, br, bc = self.band.shape
-            xb = x_q.reshape(self.m_padded // bc, bc, -1)
-            cols = self.base[:, None] + jnp.arange(W)[None, :]
-            wins = jnp.take(xb, cols, axis=0)
-            acc = jnp.einsum(
-                "iwab,iwbc->iac", self.band, wins,
-                preferred_element_type=jnp.int32,
-            ).reshape(x_q.shape)
-        acc = acc.reshape(x_q.shape)
-        y = self.band_scale * acc.astype(jnp.float32)
-        if x0_q is not None:
-            y = 2.0 * y - x0_q.astype(jnp.float32)
-        return jnp.clip(jnp.round(y), -127.0, 127.0).astype(jnp.int8)
+        acc = band_windows(
+            self.band, self.base, self.sched, self.levels,
+            self.rows_per_step, self.block_shape, x_q, jnp.int32,
+        )
+        return quant_emit(acc, self.band_scale, x0_q)
 
     def spmm_q(self, x_q: jax.Array) -> jax.Array:
-        """``quantize(L @ dequantize(x_q))`` in one int8 kernel pass."""
+        """``quantize(L @ dequantize(x_q))`` in one int8 pass."""
         return self._call(x_q, None)
 
     def cheby_hop_q(self, x1_q: jax.Array, x0_q: jax.Array, *,
@@ -519,11 +449,10 @@ class QuantBandedLaplacian(QuantOpMixin):
 def cheby_finals(L, x: jax.Array, K: int) -> jax.Array:
     """Run the K-1-product Chebyshev recurrence and return ``T_{K-1} x``.
 
-    The chain driver behind the throughput benchmarks (bench.py,
-    experiments/_probe.py) and any power-iteration-style use that needs
-    only the final carry.  Two hops per loop iteration with DONATED
-    (in-place) kernel outputs, so each while-loop carry stays in a fixed
-    buffer:
+    The chain driver behind the throughput benchmarks and any
+    power-iteration-style use that needs only the final carry.  Two hops
+    per loop iteration with DONATED (in-place) kernel outputs, so each
+    while-loop carry stays in a fixed buffer:
 
         body(p, q):  r = hop(q, p)   # writes into p's buffer
                      s = hop(r, q)   # writes into q's buffer
@@ -531,8 +460,7 @@ def cheby_finals(L, x: jax.Array, K: int) -> jax.Array:
 
     A naive ``return q, hop(q, p)`` body permutes the carry buffers, and
     XLA's while-loop lowering restores the fixed-slot invariant with a
-    full-activation copy per carry per hop — measured 2 x 39 us/hop at
-    50k nodes / C=512, ~28%% of the chain (DESIGN.md §16, trace-backed).
+    full-activation copy per carry per hop.
 
     Dispatches on the operator protocol: quantized operators
     (``cheby_hop_q``) take/return int8 carries (pass ``x`` already
@@ -578,16 +506,15 @@ class QuantDenseLaplacian(QuantOpMixin):
     The reference's flagship classification topology (the 20NEWS
     embedding-kNN graph, /root/reference/lib/utils.py:127-150 +
     nips2016/20news.ipynb cell 22) is ~54%% block-dense after RCM, so
-    ``fmt="auto"`` serves it as a DENSE operator (DESIGN.md §17) — this
-    twin gives that path int8 serving: the matrix is symmetric-quantized
-    with one global scale ``max|L|/127``, the recurrence runs int8 @
-    int8 -> int32 on the MXU (2x the bf16 rate class, half the HBM
-    bytes), and the dequant/requant emission works in input-scale units
-    exactly like ``QuantBandedLaplacian`` — so the activation scale is a
-    TRACED runtime value and the whole ``cheby_hop_q``/``spmm_q``
-    protocol (``ops.cheby_conv`` streaming dispatch, ``cheby_finals``
-    chains, ``quantize_model_operators``) applies unchanged.
-    Inference-only: no VJP (train in f32/bf16, quantize for serving).
+    ``fmt="auto"`` serves it as a DENSE operator — this twin gives that
+    path int8 serving: the matrix is symmetric-quantized with one global
+    scale ``max|L|/127``, the recurrence runs int8 @ int8 -> int32 (half
+    the bf16 bytes), and the dequant/requant emission works in
+    input-scale units exactly like ``QuantBandedLaplacian`` — so the
+    activation scale is a TRACED runtime value and the whole
+    ``cheby_hop_q``/``spmm_q`` protocol (``ops.cheby_conv`` streaming
+    dispatch, ``cheby_finals`` chains, ``quantize_model_operators``)
+    applies unchanged.  Inference-only: no VJP.
     """
 
     mat: jax.Array   # [Mp, Mp] int8
@@ -600,10 +527,7 @@ class QuantDenseLaplacian(QuantOpMixin):
 
     def _call(self, x_q: jax.Array, x0_q: jax.Array | None) -> jax.Array:
         acc = jnp.dot(self.mat, x_q, preferred_element_type=jnp.int32)
-        y = self.mat_scale * acc.astype(jnp.float32)
-        if x0_q is not None:
-            y = 2.0 * y - x0_q.astype(jnp.float32)
-        return jnp.clip(jnp.round(y), -127.0, 127.0).astype(jnp.int8)
+        return quant_emit(acc, self.mat_scale, x0_q)
 
     def spmm_q(self, x_q: jax.Array) -> jax.Array:
         return self._call(x_q, None)
@@ -614,17 +538,26 @@ class QuantDenseLaplacian(QuantOpMixin):
         return self._call(x1_q, x0_q)
 
 
+def global_int8(a: jax.Array):
+    """Symmetric int8 quantization with one global scale ``max|a|/127``,
+    computed on the device (the array keeps its sharding).  Returns
+    ``(a_int8, scale)``."""
+    s = float(jax.jit(
+        lambda b: jnp.max(jnp.abs(b.astype(jnp.float32))))(a)) / 127.0
+    if s == 0.0:
+        s = 1.0
+    q = jax.jit(lambda b: jnp.clip(
+        jnp.round(b.astype(jnp.float32) / s), -127, 127).astype(jnp.int8))(a)
+    return q, s
+
+
 def quantize_dense(op: DenseLaplacian, headroom: float = 2.0,
                    sample_x: float = 1.0) -> QuantDenseLaplacian:
     """Quantize a DenseLaplacian for int8 inference (scale semantics
     identical to :func:`quantize_banded`)."""
-    mat = np.asarray(jax.device_get(op.mat), np.float32)
-    s = float(np.max(np.abs(mat))) / 127.0
-    if s == 0.0:
-        s = 1.0
-    mat_q = np.clip(np.round(mat / s), -127, 127).astype(np.int8)
+    mat_q, s = global_int8(op.mat)
     return QuantDenseLaplacian(
-        mat=jnp.asarray(mat_q), m=op.m, m_padded=op.m_padded, nnz=op.nnz,
+        mat=mat_q, m=op.m, m_padded=op.m_padded, nnz=op.nnz,
         mat_scale=s, act_scale=float(sample_x) * headroom / 127.0,
         headroom=headroom,
     )
@@ -632,11 +565,9 @@ def quantize_dense(op: DenseLaplacian, headroom: float = 2.0,
 
 @functools.partial(
     jax.tree_util.register_dataclass,
-    data_fields=["blocks", "block_rows", "block_cols", "block_rowptr",
-                 "cs_meta", "cs_gcols", "cs_gcolptr", "cs_groupptr"],
-    meta_fields=["m", "m_padded", "nnz", "block_shape", "use_pallas",
-                 "block_scale", "act_scale", "headroom", "row_max",
-                 "rows_per_step", "group_max", "col_stream"],
+    data_fields=["blocks", "block_cols", "row_pos"],
+    meta_fields=["m", "m_padded", "nnz", "block_shape", "groups",
+                 "n_tiles", "block_scale", "act_scale", "headroom"],
 )
 @dataclasses.dataclass(frozen=True)
 class QuantBlockSparseLaplacian(QuantOpMixin):
@@ -644,62 +575,30 @@ class QuantBlockSparseLaplacian(QuantOpMixin):
     BlockSparseLaplacian for scattered graphs ABOVE the dense budget
     (RCV1-scale embedding-kNN graphs, /root/reference/lib/utils.py:
     162-218).  Same one-global-scale / input-scale-units emission as
-    the banded and dense twins; int8 tile taps accumulate in int32
-    (XLA: einsum + segment_sum; Pallas: the grouped-row BSR kernel
-    with the quant emission).  Inference-only."""
+    the banded and dense twins; int8 tile taps accumulate in int32.
+    Inference-only."""
 
-    blocks: jax.Array       # [nb (+ pad), br, bc] int8
-    block_rows: jax.Array   # [nb] int32, sorted
-    block_cols: jax.Array   # [nb] int32
-    block_rowptr: jax.Array  # [n_row_blocks + 1] int32
+    blocks: jax.Array       # [T, br, bc] int8
+    block_cols: jax.Array   # [T] int32
+    row_pos: jax.Array      # [n_rb] int32
     m: int
     m_padded: int
     nnz: int
     block_shape: tuple
-    use_pallas: bool
+    groups: tuple
+    n_tiles: int
     block_scale: float
     act_scale: float
     headroom: float = 2.0
-    row_max: int = 0
-    rows_per_step: int = 1  # grouped-row kernel G (see BlockSparse twin)
-    group_max: int = 0
-    col_stream: bool = False  # column-streamed layout (see float twin)
-    cs_meta: jax.Array | None = None
-    cs_gcols: jax.Array | None = None
-    cs_gcolptr: jax.Array | None = None
-    cs_groupptr: jax.Array | None = None
 
     @property
     def block_size(self):
         return self.block_shape[0]
 
-    def _acc(self, x_q: jax.Array) -> jax.Array:
-        """Int32 accumulator ``(L/scale) @ x_q`` via the XLA path."""
-        br, bc = self.block_shape
-        n_row_blocks = self.m_padded // br
-        nb = self.block_cols.shape[0]
-        xb = x_q.reshape(self.m_padded // bc, bc, -1)
-        gathered = jnp.take(xb, self.block_cols, axis=0)
-        partial = jnp.einsum(
-            "nij,njc->nic", self.blocks[:nb], gathered,
-            preferred_element_type=jnp.int32,
-        )
-        acc = jax.ops.segment_sum(
-            partial, self.block_rows, num_segments=n_row_blocks,
-            indices_are_sorted=not self.col_stream,
-        )
-        return acc.reshape(x_q.shape)
-
     def _call(self, x_q: jax.Array, x0_q: jax.Array | None) -> jax.Array:
-        if self.use_pallas and (self.group_max > 0 or self.col_stream):
-            from cnn_graph_tpu.ops.pallas_spmm import bsr_call_quant
-
-            return bsr_call_quant(self, x_q, x0_q)
-        acc = self._acc(x_q)
-        y = self.block_scale * acc.astype(jnp.float32)
-        if x0_q is not None:
-            y = 2.0 * y - x0_q.astype(jnp.float32)
-        return jnp.clip(jnp.round(y), -127.0, 127.0).astype(jnp.int8)
+        acc = bsr_windows(self.blocks, self.block_cols, self.row_pos,
+                          self.groups, self.block_shape, x_q, jnp.int32)
+        return quant_emit(acc, self.block_scale, x0_q)
 
     def spmm_q(self, x_q: jax.Array) -> jax.Array:
         return self._call(x_q, None)
@@ -713,32 +612,20 @@ class QuantBlockSparseLaplacian(QuantOpMixin):
 def quantize_block_sparse(op: BlockSparseLaplacian, headroom: float = 2.0,
                           sample_x: float = 1.0) -> QuantBlockSparseLaplacian:
     """Quantize a BlockSparseLaplacian for int8 inference."""
-    blocks = np.asarray(jax.device_get(op.blocks), np.float32)
-    s = float(np.max(np.abs(blocks))) / 127.0
-    if s == 0.0:
-        s = 1.0
-    blocks_q = np.clip(np.round(blocks / s), -127, 127).astype(np.int8)
+    blocks_q, s = global_int8(op.blocks)
     return QuantBlockSparseLaplacian(
-        blocks=jnp.asarray(blocks_q),
-        block_rows=op.block_rows,
+        blocks=blocks_q,
         block_cols=op.block_cols,
-        block_rowptr=op.block_rowptr,
+        row_pos=op.row_pos,
         m=op.m,
         m_padded=op.m_padded,
         nnz=op.nnz,
         block_shape=op.block_shape,
-        use_pallas=op.use_pallas,
+        groups=op.groups,
+        n_tiles=op.n_tiles,
         block_scale=s,
         act_scale=float(sample_x) * headroom / 127.0,
         headroom=headroom,
-        row_max=op.row_max,
-        rows_per_step=op.rows_per_step,
-        group_max=op.group_max,
-        col_stream=op.col_stream,
-        cs_meta=op.cs_meta,
-        cs_gcols=op.cs_gcols,
-        cs_gcolptr=op.cs_gcolptr,
-        cs_groupptr=op.cs_groupptr,
     )
 
 
@@ -753,31 +640,16 @@ def quantize_banded(op: BandedLaplacian, headroom: float = 2.0,
     chain).  ``sample_x`` is the expected activation max (callers pass
     ``float(jnp.max(jnp.abs(x)))`` of a representative batch).
     """
-    band = np.asarray(jax.device_get(op.band), np.float32)
-    s_b = float(np.max(np.abs(band))) / 127.0
-    if s_b == 0.0:
-        s_b = 1.0
-    band_q = np.clip(np.round(band / s_b), -127, 127).astype(np.int8)
-    bands_dkw, sched_dkw = None, None
-    if op.use_pallas and op.levels:
-        from cnn_graph_tpu.ops.pallas_band import pack_dkw_from_ragged
-
-        bd, sd = pack_dkw_from_ragged(band_q, op.sched, op.levels,
-                                      op.rows_per_step, *op.block_shape)
-        bands_dkw = tuple(jnp.asarray(b) for b in bd)
-        sched_dkw = jnp.asarray(sd)
+    band_q, s_b = global_int8(op.band)
     return QuantBandedLaplacian(
-        band=jnp.asarray(band_q),
+        band=band_q,
         base=op.base,
-        bands_dkw=bands_dkw,
-        sched_dkw=sched_dkw,
+        rows=op.rows,
         m=op.m,
         m_padded=op.m_padded,
         nnz=op.nnz,
         block_shape=op.block_shape,
-        ring_slots=op.ring_slots,
         rows_per_step=op.rows_per_step,
-        use_pallas=op.use_pallas,
         band_scale=s_b,
         act_scale=float(sample_x) * headroom / 127.0,
         headroom=headroom,
@@ -794,11 +666,11 @@ LaplacianOperator = (
 
 
 def band_stats(L: scipy.sparse.spmatrix,
-               block_shape: tuple = (MXU_TILE, MXU_TILE)):
+               block_shape: tuple = (BLOCK, BLOCK)):
     """Band geometry of the block-tiled matrix: per-block-row monotone
     window bases (suffix-min of the first nonzero block column), the band
-    width W covering every row's span, the ring size the kernel needs,
-    and the number of occupied blocks (for the banded-vs-BSR cost call).
+    width W covering every row's span, and the number of occupied blocks
+    (for the banded-vs-BSR choice).
     """
     br, bc = block_shape
     m = L.shape[0]
@@ -823,91 +695,46 @@ def band_stats(L: scipy.sparse.spmatrix,
     return base, W, n_blocks, mp
 
 
-def auto_rows_per_step(base, W: int, br: int, bc: int,
-                       elem_bytes: int, act_bytes: int | None = None) -> int:
-    """Largest G whose FULL banded-kernel VMEM footprint fits a budget:
-    double-buffered band slabs (in the BAND element size) + x ring +
-    Pallas's double-buffered y / x0 pipeline blocks (in the ACTIVATION
-    element size).  Activations on every banded path run in the
-    operator's COMPUTE dtype (``cheby_conv_banded`` casts up front; the
-    quantized chain carries int8), so act_bytes defaults to elem_bytes —
-    the old worst-case-fp32 assumption made the model refuse G=8 for
-    bf16 at 50k, which runs fine on-chip and is measured faster (int8
-    202 -> 190 us/spmm, bf16 325 -> 318; DESIGN.md §18).  ~16MB
-    VMEM/core on v5e; slack is left for Mosaic temporaries.  Raises
-    when even G=1 cannot fit."""
-    from cnn_graph_tpu.ops.pallas_band import ROWS_PER_STEP, ring_span
-
-    tc_est = 512
-    budget = 13 * 2**20
-    if act_bytes is None:
-        act_bytes = elem_bytes  # banded paths run compute-dtype x
-
-    def vmem_est(g):
-        return (
-            2 * g * W * br * bc * elem_bytes           # band slabs
-            # x ring; +W-1 mirrored slots for the deep-K window layout
-            + (ring_span(base, W, g) + W - 1) * bc * tc_est * act_bytes
-            + 4 * g * br * tc_est * act_bytes          # y + x0 blocks
+def _check_width(W: int, max_band_width: int):
+    if W > max_band_width:
+        raise ValueError(
+            f"band width {W} blocks exceeds {max_band_width}; "
+            "RCM-reorder the graph or use fmt='bsr'"
         )
-
-    for g in range(min(ROWS_PER_STEP, len(base)), 0, -1):
-        if vmem_est(g) <= budget:
-            return g
-    raise ValueError(
-        f"banded kernel VMEM footprint {vmem_est(1) >> 20}MB exceeds the "
-        f"budget even at G=1 (W={W}, elem_bytes={elem_bytes}); use "
-        "fmt='bsr' or a narrower ordering"
-    )
 
 
 def pack_banded(L: scipy.sparse.spmatrix,
-                block_shape: tuple = (MXU_TILE, MXU_TILE),
+                block_shape: tuple = (BLOCK, BLOCK),
                 max_band_width: int = 48,
                 rows_per_step: int | None = None,
-                elem_bytes: int = 2,
-                act_bytes: int | None = None,
                 stats: tuple | None = None,
                 row_multiple: int | None = None,
                 band_dtype=np.float32):
     """Pack a block-banded sparse matrix into a dense band
     ``[n_row_blocks, W, br, bc]`` with monotone window bases.
 
-    ``rows_per_step`` (G) is the kernel's per-grid-step row batch; the
-    row count is padded to a multiple of it (zero band rows, base held at
-    its last value).  When unset, G is sized to keep the kernel's band
-    double-buffer within a VMEM budget for the operator's element size
-    (measured: G=8 beats G=4 by ~20% at 50k nodes in bf16; G=16 OOMs).
-    Returns ``(band, base, ring, G, m_padded)``.  Raises ``ValueError``
-    when the band would exceed ``max_band_width`` blocks (a scattered
-    ordering — use BSR, or RCM-reorder first).
+    The row count is padded to a multiple of ``rows_per_step`` (G; zero
+    band rows, base held at its last value).  Returns ``(band, base, G,
+    m_padded)``.  Raises ``ValueError`` when the band would exceed
+    ``max_band_width`` blocks (a scattered ordering — use BSR, or
+    RCM-reorder first).
     """
-    from cnn_graph_tpu.ops.pallas_band import ROWS_PER_STEP, ring_span
-
     br, bc = block_shape
     base, W, _, mp = stats if stats is not None else band_stats(
         L, block_shape
     )
-    if W > max_band_width:
-        raise ValueError(
-            f"band width {W} blocks exceeds {max_band_width}; "
-            "RCM-reorder the graph or use fmt='bsr'"
-        )
-    if rows_per_step is None:
-        G = auto_rows_per_step(base, W, br, bc, elem_bytes, act_bytes)
-    else:
-        G = rows_per_step
-    # Pad rows so the grid is whole super-steps (and keep bc | mp for the
-    # column reshape).  Padded band rows are zero; base holds its last
-    # value, keeping monotonicity and column bounds.  ``row_multiple``
-    # overrides the row rounding (the sharded banded-halo packer needs
-    # n_shards * G block-rows per multiple).
+    _check_width(W, max_band_width)
+    G = rows_per_step or min(ROWS_PER_STEP, len(base))
+    # Pad rows so the row count is whole super-steps (and keep bc | mp
+    # for the column reshape).  Padded band rows are zero; base holds its
+    # last value, keeping monotonicity and column bounds.
+    # ``row_multiple`` overrides the row rounding (the sharded
+    # banded-halo packer needs n_shards * G block-rows per multiple).
     mp = _round_up(mp, int(np.lcm((row_multiple or G) * br, bc)))
     n_rb = mp // br
     base = np.concatenate(
         [base, np.full(n_rb - len(base), base[-1], np.int32)]
     )
-    ring = ring_span(base, W, G)
     # Allocate the host staging band directly in the target dtype: a
     # float32 buffer at 1M-node scale (~8k block-rows, W~11) is ~6GB of
     # host RAM before the device cast; bf16/int8 staging halves/quarters
@@ -918,7 +745,7 @@ def pack_banded(L: scipy.sparse.spmatrix,
     band[brow, coo.col // bc - base[brow], coo.row % br, coo.col % bc] = (
         coo.data.astype(band.dtype)
     )
-    return band, base, ring, G, mp
+    return band, base, G, mp
 
 
 def choose_band_levels(ws, max_levels: int = 4) -> tuple:
@@ -926,8 +753,6 @@ def choose_band_levels(ws, max_levels: int = 4) -> tuple:
     minimizing total padded band blocks when every super-step width in
     ``ws`` is rounded UP to its level.  Exhaustive over the distinct
     widths (band widths are <= max_band_width, so this is tiny)."""
-    import itertools
-
     uniq, cnt = np.unique(np.asarray(ws, np.int64), return_counts=True)
     if len(uniq) <= max_levels:
         return tuple(int(u) for u in uniq)
@@ -942,11 +767,9 @@ def choose_band_levels(ws, max_levels: int = 4) -> tuple:
 
 
 def pack_banded_ragged(L: scipy.sparse.spmatrix,
-                       block_shape: tuple = (MXU_TILE, MXU_TILE),
+                       block_shape: tuple = (BLOCK, BLOCK),
                        max_band_width: int = 48,
                        rows_per_step: int | None = None,
-                       elem_bytes: int = 2,
-                       act_bytes: int | None = None,
                        stats: tuple | None = None,
                        max_levels: int = 4,
                        band_dtype=np.float32):
@@ -954,31 +777,21 @@ def pack_banded_ragged(L: scipy.sparse.spmatrix,
 
     Like ``pack_banded``, but each G-block-row super-step stores only
     ``W_s = max span within the step`` diagonal blocks (rounded up to
-    one of <= ``max_levels`` static width levels), laid out flat.  Cuts
-    ~20% of the band FLOPs/bytes that the uniform max-width layout pads
-    in on the 50k/100k city graphs (measured; DESIGN.md §12).
+    one of <= ``max_levels`` static width levels), laid out flat — the
+    blocks the uniform max-width layout pads in are not stored.
 
-    Returns ``(band_flat, base, sched, levels, ring, G, m_padded)``
-    where ``sched`` is the static int32 schedule ``(offsets,
-    level_indices, column_high_water)`` as tuples and ``band_flat`` is
-    ``[sum_s G*W_s, br, bc]``.
+    Returns ``(band_flat, base, sched, levels, G, m_padded)`` where
+    ``sched`` is the static schedule ``(offsets, level_indices)`` as
+    tuples and ``band_flat`` is ``[sum_s G*W_s, br, bc]``.
     """
-    from cnn_graph_tpu.ops.pallas_band import PREFETCH_AHEAD
-
     br, bc = block_shape
     base, W, _, mp = stats if stats is not None else band_stats(
         L, block_shape
     )
-    if W > max_band_width:
-        raise ValueError(
-            f"band width {W} blocks exceeds {max_band_width}; "
-            "RCM-reorder the graph or use fmt='bsr'"
-        )
-    G = (auto_rows_per_step(base, W, br, bc, elem_bytes, act_bytes)
-         if rows_per_step is None else rows_per_step)
+    _check_width(W, max_band_width)
+    G = rows_per_step or min(ROWS_PER_STEP, len(base))
     mp = _round_up(mp, int(np.lcm(G * br, bc)))
     n_rb = mp // br
-    n_cb = mp // bc
     base = np.concatenate(
         [base, np.full(n_rb - len(base), base[-1], np.int32)]
     )
@@ -1003,50 +816,12 @@ def pack_banded_ragged(L: scipy.sparse.spmatrix,
            + (coo.col // bc - base[brow]))
     band[pos, coo.row % br, coo.col % bc] = coo.data.astype(band.dtype)
 
-    # Monotone column high-water after each step, clamped to the column
-    # count (levels wider than a row's true span may peek past the edge;
-    # those band blocks are zero, and the clamp keeps x fetches in
-    # bounds — the kernel's ring reads for clamped columns multiply
-    # zero blocks).
-    step_hi = base[(np.arange(nsb) + 1) * G - 1].astype(np.int64) + wl
-    hw = np.minimum(np.maximum.accumulate(step_hi), n_cb)
-    started = hw[np.minimum(np.arange(nsb) + PREFETCH_AHEAD, nsb - 1)]
-    ring = int((started - base[np.arange(nsb) * G]).max()) + 1
-
-    sched = (tuple(int(v) for v in offs),
-             tuple(int(v) for v in lvl_idx),
-             tuple(int(v) for v in hw))
-    return band, base, sched, levels, ring, G, mp
-
-
-def choose_block_shape(
-    L: scipy.sparse.spmatrix,
-    candidates=((8, 128), (16, 128), (32, 128), (64, 128), (128, 128)),
-    dma_overhead: int = 11000,
-) -> tuple:
-    """Pick the block shape minimizing a padded-FLOPs + per-block-DMA cost
-    model.  ``dma_overhead`` is the fixed per-block cost expressed in
-    padded-entry units; 11000 is fitted from v5e measurements (~230ns fixed
-    per block at C=512, for both (8,128) and (128,128) tiles).  With that
-    overhead, square 128 tiles win for every graph tested (short-wide tiles
-    only pay off for extremely banded matrices where a 128-row group spans
-    many more column blocks than an 8-row group — rare after RCM at these
-    sizes), but the model keeps the choice principled as scales grow."""
-    coo = L.tocoo()
-    best, best_cost = None, None
-    for br, bc in candidates:
-        mp = _round_up(L.shape[0], int(np.lcm(br, bc)))
-        n_cb = mp // bc
-        nb = len(np.unique((coo.row // br).astype(np.int64) * n_cb
-                           + coo.col // bc))
-        cost = nb * (br * bc + dma_overhead)
-        if best_cost is None or cost < best_cost:
-            best, best_cost = (br, bc), cost
-    return best
+    sched = (tuple(int(v) for v in offs), tuple(int(v) for v in lvl_idx))
+    return band, base, sched, levels, G, mp
 
 
 def pack_block_sparse(L: scipy.sparse.spmatrix,
-                      block_shape: tuple = (MXU_TILE, MXU_TILE)):
+                      block_shape: tuple = (BLOCK, BLOCK)):
     """Tile a sparse matrix into dense ``br x bc`` blocks, keeping nonzero
     tiles only.
 
@@ -1082,119 +857,60 @@ def pack_block_sparse(L: scipy.sparse.spmatrix,
     return blocks, brows, (unique_ids % n_cb).astype(np.int32), rowptr, mp_r
 
 
-COLSTREAM_CHUNK = 64  # block slab sub-chunk (double-buffered DMA unit)
-COLSTREAM_UNROLL = 8  # blocks per fori-loop iteration in the kernel:
-# the measured per-iteration scalar overhead of a dynamic in-kernel
-# fori is ~229 ns (loopcost probe) — one block per iteration caps the
-# walk at ~250 ns/block regardless of DMA strategy; 8 static dots per
-# iteration amortize it to ~30 ns (DESIGN.md §20).
+def tile_levels(counts) -> np.ndarray:
+    """Round per-row tile counts up to the palette 1, 2, 3, 4, 6, 8, 12,
+    16, ... (powers of two and 1.5x powers of two): a row stores fewer
+    than 1.5x its tiles, and rows of at most k tiles use at most
+    2 log2(k) + 1 levels.  Empty rows take level 1."""
+    c = np.maximum(np.asarray(counts, np.int64), 1)
+    p = np.left_shift(1, np.frexp(c)[1] - 1).astype(np.int64)
+    return np.where(c == p, p, np.where(2 * c <= 3 * p, 3 * p // 2, 2 * p))
 
 
-def colstream_pack(blocks: np.ndarray, brows: np.ndarray,
-                   bcols: np.ndarray, rowptr: np.ndarray, G: int,
-                   unroll: int = COLSTREAM_UNROLL):
-    """Column-streamed block layout + kernel metadata for scattered BSR
-    (the unrolled x-reuse kernel, ops/pallas_spmm._kernel_colstream).
+def pack_bsr_groups(csrs):
+    """Block-CSR matrices (``pack_block_sparse``'s first four outputs)
+    with a common block-row count, to the GROUPED padded layout: block
+    rows are sorted by tile count, longest first, and each row is padded
+    to its tile-count level (``tile_levels``), so storage stays within
+    1.5x of the nonzero tiles however skewed the row degrees; rows of
+    one level form one group.  Several matrices (the shards of
+    parallel/sparse_halo.py) share one static group list: the j-th
+    longest row of each is padded to the largest level among the j-th
+    longest rows, so no matrix stores more than every-row-padded-to-
+    the-longest would.
 
-    Each G-row group's blocks are reordered by (column, row) — so each
-    DISTINCT column's x tile is fetched once per group — and padded
-    with zero blocks to a multiple of ``unroll`` so the kernel can walk
-    them ``unroll`` at a time with one dynamic loop iteration per
-    bundle (the per-iteration scalar overhead is the flat ~250 ns/block
-    the per-block pipeline pays; DESIGN.md §20).  Pad blocks carry
-    ``meta = 0`` (row 0, first column) and are zero, so they
-    contribute nothing.
-
-    Returns ``(blocks2, brows2, bcols2, meta, gcols, gcolptr,
-    groupptr)`` where ``groupptr`` [n_groups+1] locates each group's
-    padded block run (multiples of ``unroll``; COLSTREAM_CHUNK must be
-    a multiple of ``unroll`` for the chunk DMA bookkeeping).
-    """
-    n_rb = len(rowptr) - 1
-    nsb = n_rb // G
-    assert n_rb % G == 0
-    assert COLSTREAM_CHUNK % unroll == 0
-    bshape = blocks.shape[1:]
-    out_blocks, out_rows, out_cols = [], [], []
-    meta_parts, gcols_parts = [], []
-    gcolptr = np.zeros(nsb + 1, np.int64)
-    groupptr = np.zeros(nsb + 1, np.int64)
-    for s in range(nsb):
-        lo, hi = int(rowptr[s * G]), int(rowptr[(s + 1) * G])
-        idx = np.arange(lo, hi)
-        order = np.lexsort((brows[idx], bcols[idx]))
-        p = idx[order]
-        cols = bcols[p]
-        uniq, local = np.unique(cols, return_inverse=True)
-        mt = ((brows[p] - s * G) << 16) | local
-        pad = (-len(p)) % unroll
-        out_blocks.append(blocks[p])
-        if pad:
-            out_blocks.append(np.zeros((pad,) + bshape, blocks.dtype))
-        out_rows.append(np.concatenate(
-            [brows[p], np.full(pad, s * G, brows.dtype)]))
-        # Pad columns carry the group's LAST column so the per-group
-        # column order stays non-decreasing (pad blocks are zero; the
-        # value only needs to be in bounds for the XLA-fallback gather).
-        out_cols.append(np.concatenate(
-            [cols, np.full(pad, uniq[-1] if len(uniq) else 0,
-                           bcols.dtype)]))
-        # Pad meta: row 0, column slot = the LAST real block's slot —
-        # the kernel reads each bundle's last meta as the column
-        # high-water mark, so pads must not understate it (pad blocks
-        # are zero; their dot adds nothing to row 0).
-        pad_slot = int(local[-1]) if len(local) else 0
-        meta_parts.append(np.concatenate(
-            [mt, np.full(pad, pad_slot, np.int64)]))
-        gcols_parts.append(uniq)
-        gcolptr[s + 1] = gcolptr[s] + len(uniq)
-        groupptr[s + 1] = groupptr[s] + len(p) + pad
-    blocks2 = (np.concatenate(out_blocks) if out_blocks
-               else blocks[:0])
-    return (
-        blocks2,
-        np.concatenate(out_rows) if out_rows else brows[:0],
-        np.concatenate(out_cols) if out_cols else bcols[:0],
-        (np.concatenate(meta_parts) if meta_parts
-         else np.zeros(0)).astype(np.int32),
-        (np.concatenate(gcols_parts) if gcols_parts
-         else np.zeros(0)).astype(np.int32),
-        gcolptr.astype(np.int32),
-        groupptr.astype(np.int32),
-    )
+    Returns ``(blocks [n, T, br, bc], cols [n, T] int32, row_pos [n,
+    n_rb] int32, groups)``: group ``(rows, k)`` owns the next ``rows * k``
+    tiles (each row's in column order, zero tiles at column 0 after),
+    and block-row ``i``'s output is row ``row_pos[i]`` of the groups'
+    outputs concatenated in order."""
+    lv = [tile_levels(np.diff(c[3])) for c in csrs]
+    orders = [np.argsort(-v, kind="stable") for v in lv]
+    width = np.max([v[o] for v, o in zip(lv, orders)], axis=0)  # descending
+    start = np.cumsum(width) - width
+    ks, rows = np.unique(width, return_counts=True)
+    groups = tuple((int(r), int(k)) for r, k in zip(rows[::-1], ks[::-1]))
+    n_rb = len(width)
+    blk0 = csrs[0][0]
+    blocks = np.zeros((len(csrs), int(width.sum())) + blk0.shape[1:],
+                      blk0.dtype)
+    cols = np.zeros(blocks.shape[:2], np.int32)
+    row_pos = np.zeros((len(csrs), n_rb), np.int32)
+    for s, ((blk, brows, bcols, rowptr), o) in enumerate(zip(csrs, orders)):
+        row_pos[s, o] = np.arange(n_rb)
+        slot = (start[row_pos[s, brows]] + np.arange(len(brows))
+                - rowptr[brows])
+        blocks[s, slot] = blk
+        cols[s, slot] = bcols
+    return blocks, cols, row_pos, groups
 
 
-def choose_bsr_row_group(rowptr: np.ndarray, br: int, bc: int,
-                         elem_bytes: int, budget: int = 6 << 20,
-                         max_overfetch: float = 1.35,
-                         max_g: int = 16) -> tuple:
-    """Pick the BSR kernel's rows-per-step G and the static slab length.
-
-    Each grid step slab-DMAs ``Lg = max group extent`` blocks (double
-    buffered), so G is the largest candidate whose slab buffers fit the
-    VMEM ``budget`` AND whose fixed-length overrun does not overfetch
-    more than ``max_overfetch`` x the real blocks (hub-heavy graphs
-    whose max group extent dwarfs the mean would waste DMA bandwidth).
-    Returns ``(G, Lg)``; ``(1, 0)`` means stay on the per-block
-    pipeline."""
-    counts = np.diff(rowptr)
-    n_rb = len(counts)
-    nb = int(rowptr[-1])
-    if nb == 0 or n_rb == 0:
-        return 1, 0
-    for G in (16, 12, 8, 4, 2):
-        if G > max_g or G > n_rb:
-            continue
-        nsb = -(-n_rb // G)
-        pad = np.full(nsb * G - n_rb, 0, counts.dtype)
-        ext = np.concatenate([counts, pad]).reshape(nsb, G).sum(axis=1)
-        Lg = int(ext.max())
-        if 2 * Lg * br * bc * elem_bytes > budget:
-            continue
-        if nsb * Lg > max_overfetch * nb:
-            continue
-        return G, Lg
-    return 1, 0
+def _block_shape(block_size) -> tuple:
+    if block_size == "auto":
+        return (BLOCK, BLOCK)
+    if isinstance(block_size, int):
+        return (block_size, block_size)
+    return tuple(block_size)
 
 
 def device_laplacian(
@@ -1204,30 +920,23 @@ def device_laplacian(
     block_size: int | tuple | str = "auto",
     dtype=jnp.float32,
     rescale: bool = True,
-    use_pallas: bool | None = None,
     dense_threshold: int = 2048,
     rows_per_step: int | None = None,
-    chunked_rows: bool = False,
     ragged: bool = True,
-    act_bytes: int | None = None,
     dense_budget: int = 2 << 30,
-    col_stream: bool | None = None,
 ) -> LaplacianOperator:
     """Build a device operator for the (rescaled) Laplacian.
 
-    ``fmt`` is ``dense`` / ``bsr`` / ``bcoo`` / ``auto`` (dense for small
-    graphs, then banded for narrow-band graphs, then — above ~1/3 block
-    occupancy, if within ``dense_budget`` bytes — dense again, because
-    block-dense scattered graphs run faster as one full-rate matmul than
-    through BSR's per-block DMA; BSR otherwise).  ``block_size``
-    is an int (square tiles), ``(rows, cols)``, or ``"auto"`` (cost-model
-    choice via ``choose_block_shape`` — short-wide tiles for banded graphs,
-    square for scattered ones).  ``rescale`` applies the spectral map
-    ``2 L / lmax - I`` (the reference rescales inside every filter call,
-    graph_conv.py:148-149; we do it once here).  ``ragged`` (banded
-    format only, default on) packs per-super-step band widths instead of
-    the global max — ~20% fewer band FLOPs/bytes on city graphs
-    (DESIGN.md §12); pass False to force the uniform layout.
+    ``fmt`` is ``dense`` / ``banded`` / ``bsr`` / ``bcoo`` / ``auto``
+    (dense for small graphs, then banded for narrow-band graphs, then —
+    above ~1/3 block occupancy, if within ``dense_budget`` bytes — dense
+    again, BSR otherwise).  ``block_size`` is an int (square tiles),
+    ``(rows, cols)``, or ``"auto"`` (128 x 128).  ``rescale`` applies
+    the spectral map ``2 L / lmax - I`` (the reference rescales inside
+    every filter call, graph_conv.py:148-149; we do it once here).
+    ``ragged`` (banded format only, default on) packs per-super-step
+    band widths instead of the global max; pass False for the uniform
+    layout.
     """
     if rescale:
         L = rescale_laplacian(L, lmax=lmax)
@@ -1235,229 +944,82 @@ def device_laplacian(
     L.eliminate_zeros()
     m = L.shape[0]
     nnz = int(L.nnz)
+    block_shape = _block_shape(block_size)
 
     _stats = None
     if fmt == "auto":
         if m <= dense_threshold:
             fmt = "dense"
+        elif block_shape == (BLOCK, BLOCK):
+            # Banded when the band is narrow and reasonably full; a
+            # scattered graph whose blocks are mostly occupied runs as
+            # one dense matmul when it fits the budget.  These thresholds
+            # date from the original target and have not been measured
+            # on the GPU yet.
+            _stats = band_stats(L)
+            base, W, n_blocks, _ = _stats
+            n_rb = len(base)
+            fmt = "banded" if W <= 32 and n_rb * W <= 3 * n_blocks else "bsr"
+            if fmt == "bsr":
+                density = n_blocks / float(n_rb * n_rb)
+                mp8 = _round_up(m, 8)
+                dense_bytes = mp8 * mp8 * jnp.dtype(dtype).itemsize
+                if density >= 1 / 3 and dense_bytes <= dense_budget:
+                    fmt = "dense"
         else:
-            # Banded beats BSR when the band is narrow and reasonably
-            # full: the sliding-window kernel removes the fixed per-block
-            # DMA cost (dominant at production sizes, DESIGN.md §10) at
-            # the price of computing the zero blocks inside the band.
-            if block_size == "auto" or (
-                isinstance(block_size, int) and block_size == MXU_TILE
-            ):
-                _stats = band_stats(L)
-                base, W, n_blocks, _ = _stats
-                n_rb = len(base)
-                fmt = (
-                    "banded"
-                    if W <= 32 and n_rb * W <= 3 * n_blocks
-                    else "bsr"
-                )
-                if fmt == "bsr":
-                    # Scattered graphs can be block-DENSE at 128 tiles:
-                    # the reference's 10k-word 20NEWS embedding-kNN graph
-                    # RCM-orders to W=60 with 54% of all blocks occupied
-                    # (lib/utils.py:127-150 topology; DESIGN.md §15).
-                    # Measured per-128-block cost at C=512 bf16 (slope-
-                    # fit, _probe.py scatter): dense ~92 ns (full-rate
-                    # XLA matmul, no sparsity bookkeeping) vs BSR
-                    # ~246 ns (fixed per-block DMA), so dense wins above
-                    # ~37% occupancy — use 1/3 with a headroom margin,
-                    # gated on the dense matrix actually fitting in a
-                    # sane HBM budget.
-                    density = n_blocks / float(n_rb * n_rb)
-                    mp8 = _round_up(m, 8)
-                    dense_bytes = mp8 * mp8 * jnp.dtype(dtype).itemsize
-                    if density >= 1 / 3 and dense_bytes <= dense_budget:
-                        fmt = "dense"
-            else:
-                fmt = "bsr"
+            fmt = "bsr"
 
     if fmt == "dense":
         mp = _round_up(m, 8)
         dense = np.zeros((mp, mp), dtype=np.float32)
-        dense[:m, :m] = L.toarray()
-        # The fused Pallas conv is opt-in (use_pallas=True): its forward is
-        # ~1.5x the XLA path at M~1000, but its custom VJP rematerializes
-        # the basis, so TRAINING is faster on the XLA path — use fused
-        # operators for inference/serving (see DESIGN.md §1).
+        coo = L.tocoo()
+        dense[coo.row, coo.col] = coo.data
         return DenseLaplacian(
             mat=jnp.asarray(dense, dtype=dtype), m=m, m_padded=mp, nnz=nnz,
-            use_fused=bool(use_pallas),
         )
 
     if fmt == "banded":
-        if use_pallas is None:
-            use_pallas = jax.default_backend() not in ("cpu",)
-        block_shape = (
-            (MXU_TILE, MXU_TILE)
-            if block_size == "auto"
-            else (block_size, block_size)
-            if isinstance(block_size, int)
-            else tuple(block_size)
-        )
+        from cnn_graph_tpu.ops.pallas_band import ragged_rows, uniform_rows
+
         if ragged:
-            band, base, sched, levels, ring, G, mp = pack_banded_ragged(
-                L, block_shape, rows_per_step=rows_per_step,
-                elem_bytes=jnp.dtype(dtype).itemsize,
-                act_bytes=act_bytes, stats=_stats,
+            band, base, sched, levels, G, mp = pack_banded_ragged(
+                L, block_shape, rows_per_step=rows_per_step, stats=_stats,
                 band_dtype=np.dtype(dtype),
             )
+            rows = ragged_rows(sched, levels, G)
         else:
-            band, base, ring, G, mp = pack_banded(
-                L, block_shape, rows_per_step=rows_per_step,
-                elem_bytes=jnp.dtype(dtype).itemsize,
-                act_bytes=act_bytes, stats=_stats,
+            band, base, G, mp = pack_banded(
+                L, block_shape, rows_per_step=rows_per_step, stats=_stats,
                 band_dtype=np.dtype(dtype),
             )
             sched, levels = (), ()
-        bands_dkw, sched_dkw = None, None
-        if use_pallas and levels:
-            from cnn_graph_tpu.ops.pallas_band import pack_dkw_from_ragged
-
-            bd, sd = pack_dkw_from_ragged(band, sched, levels, G,
-                                          *block_shape)
-            bands_dkw = tuple(jnp.asarray(b, dtype=dtype) for b in bd)
-            sched_dkw = jnp.asarray(sd)
+            rows = uniform_rows(*band.shape[:2])
         return BandedLaplacian(
             band=jnp.asarray(band, dtype=dtype),
             base=jnp.asarray(base),
+            rows=jnp.asarray(rows),
             m=m,
             m_padded=mp,
             nnz=nnz,
             block_shape=block_shape,
-            ring_slots=ring,
             rows_per_step=G,
-            use_pallas=use_pallas,
             sched=sched,
             levels=levels,
-            bands_dkw=bands_dkw,
-            sched_dkw=sched_dkw,
         )
 
     if fmt == "bsr":
-        if use_pallas is None:
-            # The Pallas kernel needs real TPU hardware; the XLA
-            # gather/segment-sum path covers CPU tests.
-            use_pallas = jax.default_backend() not in ("cpu",)
-        if block_size == "auto":
-            block_shape = choose_block_shape(L)
-        elif isinstance(block_size, int):
-            block_shape = (block_size, block_size)
-        else:
-            block_shape = tuple(block_size)
-        blocks, brows, bcols, rowptr, mp = pack_block_sparse(L, block_shape)
-        # Chunked row-slab DMA (one transfer per block-row extent) is
-        # opt-in: measured SLOWER than the per-block pipeline on the 50k
-        # RCM city graph (1693 vs 1601 us/spmm — fetching the max extent
-        # pads 9 blocks/row against 6.6 actually present, and the
-        # per-block pipeline already hides the fixed transfer cost
-        # behind the MXU taps; DESIGN.md §11).  Hub-heavy graphs whose
-        # max extent dwarfs the mean are refused regardless (the slab
-        # buffer is sized by the max).
-        counts = np.diff(rowptr)
-        row_max = int(counts.max()) if len(counts) else 0
-        mean_cnt = float(counts.mean()) if len(counts) else 0.0
-        if col_stream is None:
-            # The branch-free unrolled column-streamed kernel is the
-            # measured BSR winner everywhere (DESIGN.md §20): city 50k
-            # 707 vs 977 (grouped) vs 1148 (per-block) us/spmm; 50k
-            # scattered kNN 6511 vs 13103 — the per-block walk's flat
-            # ~245 ns/block was scalar fori-iteration cost (loopcost
-            # probe: ~229 ns/iteration), amortized by the U=8 bundle
-            # walk, with x-tile reuse riding along.
-            col_stream = bool(use_pallas) and not chunked_rows
-        if col_stream and use_pallas and len(counts):
-            G_cs = min(8, max(len(counts), 1))
-            mp = _round_up(mp, int(np.lcm(G_cs * block_shape[0],
-                                          block_shape[1])))
-            n_rb = mp // block_shape[0]
-            rowptr = np.concatenate(
-                [rowptr,
-                 np.full(n_rb + 1 - len(rowptr), rowptr[-1],
-                         rowptr.dtype)]
-            )
-            (blocks, brows, bcols, cs_meta, cs_gcols, cs_gcolptr,
-             cs_groupptr) = colstream_pack(blocks, brows, bcols,
-                                           rowptr, G_cs)
-            blocks = np.concatenate(
-                [blocks,
-                 np.zeros((COLSTREAM_CHUNK,) + blocks.shape[1:],
-                          blocks.dtype)]
-            )
-            cs_meta = np.concatenate(
-                [cs_meta, np.zeros(COLSTREAM_CHUNK, cs_meta.dtype)]
-            )
-            return BlockSparseLaplacian(
-                blocks=jnp.asarray(blocks, dtype=dtype),
-                block_rows=jnp.asarray(brows),
-                block_cols=jnp.asarray(bcols),
-                block_rowptr=jnp.asarray(rowptr),
-                m=m,
-                m_padded=mp,
-                nnz=nnz,
-                block_shape=block_shape,
-                use_pallas=use_pallas,
-                rows_per_step=G_cs,
-                col_stream=True,
-                cs_meta=jnp.asarray(cs_meta),
-                cs_gcols=jnp.asarray(cs_gcols),
-                cs_gcolptr=jnp.asarray(cs_gcolptr),
-                cs_groupptr=jnp.asarray(cs_groupptr),
-            )
-        if chunked_rows and row_max > 0 and row_max <= max(
-            4.0 * mean_cnt, 8.0
-        ):
-            blocks = np.concatenate(
-                [blocks,
-                 np.zeros((row_max,) + blocks.shape[1:], blocks.dtype)]
-            )
-        else:
-            row_max = 0
-        # Grouped-row slab DMA (default when it fits): G block-rows per
-        # grid step, their blocks — contiguous in block-CSR order — as
-        # one double-buffered slab transfer; amortizes the per-grid-step
-        # fixed cost that dominated the per-block pipeline (the flat
-        # "246 ns/block" of DESIGN.md §17).  Mutually exclusive with the
-        # opt-in chunked_rows experiment.
-        G, Lg = (1, 0)
-        if row_max == 0 and use_pallas:
-            G, Lg = choose_bsr_row_group(
-                rowptr, *block_shape, jnp.dtype(dtype).itemsize
-            )
-            if G == 1 and len(counts):
-                # Keep the slab pad even at G=1 so the grouped kernel
-                # (the int8 twin's only Pallas path) is always callable.
-                Lg = int(counts.max())
-        if Lg > 0:
-            br_sz = block_shape[0]
-            # Whole super-steps: pad rows (empty extents) so the output
-            # grid tiles into (G*br, tc) blocks.
-            mp = _round_up(mp, int(np.lcm(G * br_sz, block_shape[1])))
-            n_rb = mp // br_sz
-            rowptr = np.concatenate(
-                [rowptr,
-                 np.full(n_rb + 1 - len(rowptr), rowptr[-1], rowptr.dtype)]
-            )
-            blocks = np.concatenate(
-                [blocks, np.zeros((Lg,) + blocks.shape[1:], blocks.dtype)]
-            )
+        *csr, mp = pack_block_sparse(L, block_shape)
+        blocks, cols, row_pos, groups = pack_bsr_groups([csr])
         return BlockSparseLaplacian(
-            blocks=jnp.asarray(blocks, dtype=dtype),
-            block_rows=jnp.asarray(brows),
-            block_cols=jnp.asarray(bcols),
-            block_rowptr=jnp.asarray(rowptr),
+            blocks=jnp.asarray(blocks[0], dtype=dtype),
+            block_cols=jnp.asarray(cols[0]),
+            row_pos=jnp.asarray(row_pos[0]),
             m=m,
             m_padded=mp,
             nnz=nnz,
             block_shape=block_shape,
-            use_pallas=use_pallas,
-            row_max=row_max,
-            rows_per_step=G,
-            group_max=Lg,
+            groups=groups,
+            n_tiles=len(csr[1]),
         )
 
     if fmt == "bcoo":

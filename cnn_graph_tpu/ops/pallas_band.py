@@ -1,33 +1,30 @@
-"""Pallas TPU kernel: banded block SpMM with a sliding x-window.
+"""Banded block SpMM and fused Chebyshev hop: one Pallas kernel for the GPU.
 
-For RCM-ordered planar/kNN graphs (the humanflow domain) the 128-tiled
-Laplacian is block-BANDED: each block-row's nonzero blocks span a short,
-monotonically advancing column window (measured: span <= 9 blocks at 50k
-nodes, <= 11 at 100k; bases monotone).  The general BSR kernel
-(ops/pallas_spmm.py) pays a fixed ~230ns DMA overhead per 128x128 block,
-which dominates at these shapes (~3x off the HBM roofline).  This kernel
-exploits the band structure instead:
+After RCM ordering a kNN/planar Laplacian tiled into ``br x bc`` blocks is
+block-BANDED: block-row ``i`` touches only the column blocks
+``base[i] .. base[i] + row_w[i] - 1``.  The band stores those blocks
+contiguously in a flat ``[T, br, bc]`` array starting at ``row_off[i]``
+(the uniform layout is the special case ``row_off = i * W``,
+``row_w = W``).
 
-* blocks are stored band-dense ``[nbr, W, br, bc]``; each grid step
-  processes ``G = rows_per_step`` consecutive block-rows, whose band
-  slab ``[G, W, br, bc]`` arrives in ONE contiguous DMA — measured
-  per-grid-step costs on v5e are ~0.7us of pipeline floor plus ~1us of
-  scalar DMA bookkeeping, so amortizing them over G rows is what moves
-  the kernel from ~30% to near the compute/HBM roofline;
-* x column-blocks live in a VMEM ring buffer ``[R, bc, tc]`` and are
-  DMA'd exactly ONCE per column stripe — the window advances
-  monotonically with the band base, so x traffic is O(M*C), not
-  O(nnz-blocks*C);
-* each block-row contributes W dense (br x bc)@(bc x tc) MXU taps, which
-  run at the MXU's peak rate (measured: 9 taps cost exactly 9x one tap).
+One program computes one ``(column tile, block-row)`` output tile.  It
+loads its own base, offset and width, walks the row's blocks with
+``pl.dot`` (accumulating in float32, or int32 for int8 operands) and
+applies the epilogue in registers:
 
-Fetch/wait bookkeeping needs no kernel state: with monotone bases the
-column high-water mark after super-step ``s`` is
-``hi(s) = base[min((s+1)G-1, last)] + W``, all derived from the
-scalar-prefetched ``base`` array.
+* the Chebyshev hop update ``y = 2 acc - x0``;
+* the adjoint-chain injection ``+ c`` (see ``filters.cheby_conv_banded``);
+* for int8 operators, the dequantise/requantise ``clip(round(2 s acc -
+  x0))`` in input-scale units, bit-identical to the XLA int8 path.
 
-Grid: (column-tiles, row-super-steps), row loop innermost (TPU grids
-execute sequentially, so the ring persists across steps).
+The column tile is grid axis 0, so the programs of one block-row launch
+next to each other and read its band blocks from L2.  Neighbouring rows
+overlap in their x windows, which L2 serves as well.
+
+Route: Triton (``backend="triton"``).  ``pl.dot`` precision: bfloat16
+operands run on the tensor cores with float32 accumulation; int8 with
+int32 accumulation (exact); float32 operands are computed in IEEE
+float32 (``Precision.HIGHEST``, no TF32).
 """
 
 from __future__ import annotations
@@ -36,826 +33,232 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["band_spmm", "band_cheby_hop", "band_cheby_hop_c",
-           "banded_call", "banded_call_ragged", "banded_call_dkw",
-           "pack_dkw_from_ragged", "PREFETCH_AHEAD", "ROWS_PER_STEP"]
+__all__ = ["banded_call", "uniform_rows", "ragged_rows", "band_spmm",
+           "band_cheby_hop", "band_cheby_hop_c"]
 
-PREFETCH_AHEAD = 1  # super-steps of DMA lookahead (NB = PA + 1 band slabs
-# in VMEM); one super-step ahead is G block-rows of in-flight transfers.
-ROWS_PER_STEP = 8  # max default G: block-rows per grid step (the
-# VMEM-budget rule in laplacian.pack_banded picks the largest G <= this)
-
-
-def ring_span(base, W: int, G: int, pa: int = PREFETCH_AHEAD) -> int:
-    """Ring slots needed so no started-but-live column collides: the max
-    over super-steps of (columns started by end of step s) - (oldest
-    column still in use at step s).  Host-side, exact."""
-    import numpy as np
-
-    nbr = len(base)
-    nsb = -(-nbr // G)
-    base = np.asarray(base, np.int64)
-    pad = np.full(nsb * G - nbr, base[-1], np.int64)
-    b = np.concatenate([base, pad])
-    last = nsb - 1
-    hi = b[np.minimum((np.arange(nsb) + 1) * G - 1, nsb * G - 1)] + W
-    started = hi[np.minimum(np.arange(nsb) + pa, last)]
-    in_use = b[np.arange(nsb) * G]
-    return int((started - in_use).max()) + 1
+# (column tile, warps, pipeline stages) per operand dtype: one stage holds
+# a band block and an x block in shared memory, and the stages must fit a
+# block's 227 KB.  bf16 and int8 were picked by a sweep at the 50k city
+# graph, C=512, on an H100 (PERF.md).  float32 bands run on XLA in
+# production (ops.backend.band_kernel); the float32 entry only sizes the
+# stages to fit, for the interpret-mode tests that check the kernel's
+# indexing against SciPy at float32 tolerance.
+_TILING = {
+    jnp.dtype(jnp.float32): (64, 4, 2),
+    jnp.dtype(jnp.bfloat16): (128, 4, 3),
+    jnp.dtype(jnp.int8): (64, 4, 4),
+}
 
 
-def _kernel(base_ref, band_ref, x_ref, *rest,
-            W, br, bc, tc, R, G, hop, has_c=False, band_scale=None,
-            pa=None):
-    # rest is (x0_ref, [c_ref,] y_ref, scratch...) for the fused Chebyshev
-    # hop (y = 2 L@x - x0 [+ c]) or (y_ref, scratch...) for the plain
-    # SpMM.  ``c`` is the adjoint-chain injection input (the per-hop tap
-    # cotangent g W_k^T; see filters.cheby_conv_banded) — folding it into
-    # the emission saves a separate 3-transfer XLA elementwise pass per
-    # backward hop.
-    # ``band_scale`` switches the kernel to the quantized-inference path:
-    # int8 band x int8 activations, pure int32 accumulation (2x the bf16
-    # MXU rate class; measured 95.7 vs 73 TOP/FLOP per tap), with the
-    # dequant/requant folded into the per-row emission.  Activations use
-    # ONE fixed scale s_x across the whole recurrence (|T_k(lambda)| <= 1
-    # on the rescaled spectrum bounds the carries), so no per-tap scale
-    # FMA is needed — measured to cost 13% of the tap rate otherwise
-    # (experiments/_probe.py mxu; DESIGN.md §11).
-    c_ref = None
+def _round_half_even(y):
+    """``jnp.round`` (half to even) from floor, which the Triton route
+    lowers: round half up, then step ties that landed on an odd value
+    back down."""
+    r = jnp.floor(y + 0.5)
+    odd = r - 2.0 * jnp.floor(0.5 * r) != 0.0
+    return jnp.where((r - y == 0.5) & odd, r - 1.0, r)
+
+
+def uniform_rows(n_rows: int, width: int) -> np.ndarray:
+    """Row metadata ``[2, n_rows]`` int32 (offset, width) of a uniform
+    band of ``width`` blocks per block-row."""
+    return np.stack([np.arange(n_rows) * width,
+                     np.full(n_rows, width)]).astype(np.int32)
+
+
+def ragged_rows(sched, levels, G: int) -> np.ndarray:
+    """Row metadata ``[2, n_rows]`` int32 of a ragged band whose
+    ``G``-row super-step ``s`` starts at ``sched[0][s]`` and is
+    ``levels[sched[1][s]]`` blocks wide."""
+    offs = np.asarray(sched[0], np.int64)
+    w = np.asarray(levels, np.int64)[np.asarray(sched[1], np.int64)]
+    g = np.arange(G)
+    off = (offs[:, None] + g[None, :] * w[:, None]).reshape(-1)
+    return np.stack([off, np.repeat(w, G)]).astype(np.int32)
+
+
+def _kernel(base_ref, off_ref, w_ref, band_ref, x_ref, *rest, bc, tc, n_cb,
+            hop, has_c, band_scale, precision):
     if hop and has_c:
-        x0_ref, c_ref, y_ref, bandbuf, xring, bsem, xsem = rest
+        x0_ref, c_ref, y_ref = rest
     elif hop:
-        x0_ref, y_ref, bandbuf, xring, bsem, xsem = rest
+        (x0_ref, y_ref), c_ref = rest, None
     else:
-        y_ref, bandbuf, xring, bsem, xsem = rest
-        x0_ref = None
+        (y_ref,), x0_ref, c_ref = rest, None, None
     quant = band_scale is not None
     acc_dt = jnp.int32 if quant else jnp.float32
     j = pl.program_id(0)
-    s = pl.program_id(1)
-    nsb = pl.num_programs(1)
-    PA = PREFETCH_AHEAD if pa is None else pa
-    NB = PA + 1
-    last = nsb - 1
+    i = pl.program_id(1)
+    base = base_ref[i]
+    off = off_ref[i]
+    cols = pl.ds(pl.multiple_of(j * tc, tc), tc)
 
-    def band_dma(step, slot):
-        return pltpu.make_async_copy(
-            band_ref.at[pl.ds(step * G, G)], bandbuf.at[slot], bsem.at[slot]
-        )
+    def tap(d, acc):
+        # A level wider than the row's true span may reach past the last
+        # column block; the band block there is zero, so clamping the
+        # window keeps the load in bounds without changing the sum.
+        col = jnp.minimum(base + d, n_cb - 1)
+        xw = x_ref[pl.ds(pl.multiple_of(col * bc, bc), bc), cols]
+        return acc + pl.dot(band_ref[off + d], xw, precision=precision)
 
-    def x_dma(col):
-        return pltpu.make_async_copy(
-            x_ref.at[pl.ds(col * bc, bc), pl.ds(j * tc, tc)],
-            xring.at[jax.lax.rem(col, R)],
-            xsem.at[jax.lax.rem(col, R)],
-        )
-
-    def start_cols(lo, hi):
-        def start_col(c, _):
-            x_dma(c).start()
-            return 0
-
-        jax.lax.fori_loop(lo, hi, start_col, 0)
-
-    def wait_cols(lo, hi):
-        def wait_col(c, _):
-            x_dma(c).wait()
-            return 0
-
-        jax.lax.fori_loop(lo, hi, wait_col, 0)
-
-    def hi(t):
-        """Column high-water mark after super-step t (t is clamped)."""
-        return base_ref[jnp.minimum((t + 1) * G - 1, nsb * G - 1)] + W
-
-    # Invariant: entering step s, band slabs [0, s+PA) and x-columns
-    # [0, hi(min(s+PA-1, last))) have been started; slabs [0, s) and
-    # columns [0, hi(s-1)) have been waited.  All bounds derive from the
-    # scalar-prefetched monotone ``base``; the kernel keeps no state.
-
-    base_s = base_ref[s * G]
-
-    # Stripe warm-up: fill the pipeline PA super-steps deep.
-    @pl.when(s == 0)
-    def _():
-        for t in range(min(PA, nsb)):  # nsb is static
-            band_dma(t, t % NB).start()
-        start_cols(base_s, hi(jnp.minimum(PA - 1, last)))
-
-    # Per-step prefetch: slab s+PA and its newly entering x-columns.
-    @pl.when(s + PA < nsb)
-    def _():
-        band_dma(s + PA, jax.lax.rem(s + PA, NB)).start()
-    start_cols(hi(jnp.minimum(s + PA - 1, last)),
-               hi(jnp.minimum(s + PA, last)))
-
-    # Wait for this step's band slab and newly needed x-columns.
-    slot = jax.lax.rem(s, NB)
-    band_dma(s, slot).wait()
-
-    @pl.when(s == 0)
-    def _():
-        wait_cols(base_s, hi(0))
-
-    @pl.when(s > 0)
-    def _():
-        wait_cols(hi(s - 1), hi(s))
-
-    # G block-rows x W dense MXU taps against the ring window.  The
-    # emission epilogue (fused hop update; int8 dequant/requant in
-    # input-scale units) is shared with the ragged kernel (_emit_row).
-    for g in range(G):
-        base_g = base_ref[s * G + g]
-        acc = jnp.zeros((br, tc), acc_dt)
-        for d in range(W):
-            acc += jnp.dot(
-                bandbuf[slot, g, d],
-                xring[jax.lax.rem(base_g + d, R)],
-                preferred_element_type=acc_dt,
-            )
-        _emit_row(y_ref, x0_ref, c_ref, acc, g, br, hop, quant, band_scale)
-
-
-def _emit_row(y_ref, x0_ref, c_ref, acc, g, br, hop, quant, band_scale):
-    """Per-block-row emission epilogue shared by the uniform and ragged
-    kernels: fused hop update, optional adjoint-chain injection ``+ c``,
-    and (for the int8 path) dequant/requant in input-scale units."""
-    rows = slice(g * br, (g + 1) * br)
+    acc = jax.lax.fori_loop(0, w_ref[i], tap,
+                            jnp.zeros((band_ref.shape[1], tc), acc_dt))
     if quant:
         y = band_scale * acc.astype(jnp.float32)
         if hop:
-            y = 2.0 * y - x0_ref[rows, :].astype(jnp.float32)
-        y_ref[rows, :] = jnp.clip(
-            jnp.round(y), -127.0, 127.0
-        ).astype(y_ref.dtype)
+            y = 2.0 * y - x0_ref[...].astype(jnp.float32)
+        y = _round_half_even(jnp.clip(y, -128.0, 128.0))
+        y_ref[...] = jnp.clip(y, -127.0, 127.0).astype(y_ref.dtype)
         return
     if hop:
-        acc = 2.0 * acc - x0_ref[rows, :].astype(jnp.float32)
-        if c_ref is not None:
-            acc = acc + c_ref[rows, :].astype(jnp.float32)
-    y_ref[rows, :] = acc.astype(y_ref.dtype)
+        acc = 2.0 * acc - x0_ref[...].astype(jnp.float32)
+        if has_c:
+            acc = acc + c_ref[...].astype(jnp.float32)
+    y_ref[...] = acc.astype(y_ref.dtype)
 
 
-def _kernel_ragged(base_ref, sched_ref, band_ref, x_ref, *rest,
-                   levels, br, bc, tc, R, G, hop, has_c=False,
-                   band_scale=None, pa=None):
-    """Ragged-width variant of ``_kernel``: the band is stored flat
-    ``[total_blocks, br, bc]`` and each row-super-step ``s`` carries
-    ``G * W_s`` blocks, where ``W_s`` is one of the static ``levels``
-    (host-chosen to minimize padding; DESIGN.md §12).  ``sched_ref`` is
-    the scalar-prefetched int32 schedule ``[3, nsb]``:
+def banded_call(band, base, rows, x, x0=None, c=None, *, out_rows: int,
+                max_width: int, band_scale: float | None = None,
+                interpret: bool = False, donate_x0: bool = False):
+    """``y = L @ x`` (``x0`` None), the hop ``y = 2 L x - x0``, or the
+    adjoint hop ``y = 2 L x - x0 + c``, on the banded layout.
 
-      row 0 — block offset of step s's slab in the flat band;
-      row 1 — level INDEX of W_s (branch selector);
-      row 2 — monotone column high-water mark after step s (precomputed
-              host-side, clamped to the column count — replaces the
-              in-kernel ``base[...] + W`` of the uniform kernel).
-
-    All branching is per SUPER-STEP (one branch per G*W_s MXU taps), so
-    the per-tap predication cost that killed in-kernel raggedness
-    (DESIGN.md §11) is amortized away.  Levels are compiled as separate
-    static code paths selected by ``pl.when``."""
-    c_ref = None
-    if hop and has_c:
-        x0_ref, c_ref, y_ref, bandbuf, xring, bsem, xsem = rest
-    elif hop:
-        x0_ref, y_ref, bandbuf, xring, bsem, xsem = rest
-    else:
-        y_ref, bandbuf, xring, bsem, xsem = rest
-        x0_ref = None
-    quant = band_scale is not None
-    acc_dt = jnp.int32 if quant else jnp.float32
-    j = pl.program_id(0)
-    s = pl.program_id(1)
-    nsb = pl.num_programs(1)
-    PA = PREFETCH_AHEAD if pa is None else pa
-    NB = PA + 1
-    last = nsb - 1
-
-    def band_dma(step, slot, lvl):
-        return pltpu.make_async_copy(
-            band_ref.at[pl.ds(sched_ref[0, step], G * lvl)],
-            bandbuf.at[slot, pl.ds(0, G * lvl)],
-            bsem.at[slot],
-        )
-
-    def for_level(step, fn):
-        for i, lvl in enumerate(levels):
-            @pl.when(sched_ref[1, step] == i)
-            def _(lvl=lvl):
-                fn(lvl)
-
-    def x_dma(col):
-        return pltpu.make_async_copy(
-            x_ref.at[pl.ds(col * bc, bc), pl.ds(j * tc, tc)],
-            xring.at[jax.lax.rem(col, R)],
-            xsem.at[jax.lax.rem(col, R)],
-        )
-
-    def start_cols(lo, hi):
-        jax.lax.fori_loop(lo, hi, lambda c, _: (x_dma(c).start(), 0)[1], 0)
-
-    def wait_cols(lo, hi):
-        jax.lax.fori_loop(lo, hi, lambda c, _: (x_dma(c).wait(), 0)[1], 0)
-
-    def hi(t):
-        """Monotone column high-water mark after super-step t (clamped
-        index; the value itself is precomputed and clamped host-side)."""
-        return sched_ref[2, jnp.minimum(t, last)]
-
-    base_s = base_ref[s * G]
-
-    # Stripe warm-up: fill the pipeline PA super-steps deep.
-    @pl.when(s == 0)
-    def _():
-        for t in range(min(PA, nsb)):  # nsb is static
-            for_level(t, lambda lvl, t=t: band_dma(t, t % NB, lvl).start())
-        start_cols(base_s, hi(PA - 1))
-
-    # Per-step prefetch: slab s+PA and its newly entering x-columns.
-    @pl.when(s + PA < nsb)
-    def _():
-        for_level(s + PA, lambda lvl: band_dma(
-            s + PA, jax.lax.rem(s + PA, NB), lvl).start())
-    start_cols(hi(s + PA - 1), hi(s + PA))
-
-    slot = jax.lax.rem(s, NB)
-    for_level(s, lambda lvl: band_dma(s, slot, lvl).wait())
-
-    @pl.when(s == 0)
-    def _():
-        wait_cols(base_s, hi(0))
-
-    @pl.when(s > 0)
-    def _():
-        wait_cols(hi(s - 1), hi(s))
-
-    # G block-rows x W_s dense MXU taps against the ring window, one
-    # static code path per level.
-    def compute(lvl):
-        for g in range(G):
-            base_g = base_ref[s * G + g]
-            acc = jnp.zeros((br, tc), acc_dt)
-            for d in range(lvl):
-                acc += jnp.dot(
-                    bandbuf[slot, g * lvl + d],
-                    xring[jax.lax.rem(base_g + d, R)],
-                    preferred_element_type=acc_dt,
-                )
-            _emit_row(y_ref, x0_ref, c_ref, acc, g, br, hop, quant,
-                      band_scale)
-
-    for_level(s, compute)
-
-
-def banded_call_ragged(band, base, sched, x, x0=None, c=None, *, levels,
-                       ring, G, out_rows, col_tile: int = 512,
-                       interpret: bool = False,
-                       band_scale: float | None = None,
-                       prefetch_ahead: int | None = None,
-                       donate_x0: bool = False):
-    """Ragged banded SpMM / fused-hop kernel call.
-
-    ``band``: flat ``[total_blocks, br, bc]``; ``sched``: int32 ``[3,
-    nsb]`` (offsets / level indices / column high-water marks, see
-    ``_kernel_ragged``); ``levels``: static ascending tuple of the
-    distinct per-super-step widths.  ``c`` (requires ``x0``) is the
-    adjoint-chain injection: ``y = 2 (L @ x) - x0 + c`` in one pass.
-    ``donate_x0`` aliases ``x0``'s buffer as the output (the hop writes
-    block (s, j) only after reading x0's block (s, j), so in-place is
-    safe) — chain drivers use it so XLA's while-loop carries stay in
-    fixed buffers instead of paying a full-activation rotation copy per
-    hop (measured 2 x 39 us per hop at 50k/C=512; DESIGN.md §16).
-    Everything else matches ``banded_call``.
+    ``band``: flat ``[T, br, bc]``; ``base``: ``[n_rows]`` int32 window
+    bases into x's block-rows; ``rows``: ``[2, n_rows]`` int32 (offset
+    into ``band``, width) per block-row, at most ``max_width`` wide.
+    ``x`` may hold MORE rows than ``out_rows = n_rows * br`` (the
+    sharded operators pass ``[left halo | local | right halo]``).
+    ``band_scale`` selects the int8 path (int8 band and activations).
+    ``donate_x0`` writes ``y`` over ``x0``'s buffer: each program reads
+    its x0 tile before it writes the same tile.
     """
-    total, br, bc = band.shape
-    nsb = sched.shape[1]
-    nbr = nsb * G
-    mp = out_rows
-    R = ring
-    W_max = levels[-1]
-    assert col_tile % 128 == 0
+    T, br, bc = band.shape
+    n_rows = base.shape[0]
+    assert out_rows == n_rows * br, (out_rows, n_rows, br)
+    assert x.shape[0] % bc == 0, x.shape
     assert c is None or x0 is not None, "c injection requires the hop form"
+    quant = band_scale is not None
+    dt = jnp.dtype(band.dtype)
+    tile, warps, stages = _TILING[dt]
     C = x.shape[1]
-    tc = min(col_tile, max(128, -(-C // 128) * 128))
+    tc = min(tile, max(16, int(pl.next_power_of_2(C))))
     cp = -(-C // tc) * tc
+    x = x.astype(dt)
+    if x0 is not None:
+        x0 = x0.astype(dt)
+    if c is not None:
+        c = c.astype(dt)
     if cp != C:
-        x = jnp.pad(x, ((0, 0), (0, cp - C)))
-        if x0 is not None:
-            x0 = jnp.pad(x0, ((0, 0), (0, cp - C)))
-        if c is not None:
-            c = jnp.pad(c, ((0, 0), (0, cp - C)))
+        pad = ((0, 0), (0, cp - C))
+        x = jnp.pad(x, pad)
+        x0 = None if x0 is None else jnp.pad(x0, pad)
+        c = None if c is None else jnp.pad(c, pad)
     hop = x0 is not None
     has_c = c is not None
-    nb = (PREFETCH_AHEAD if prefetch_ahead is None else prefetch_ahead) + 1
+    precision = (jax.lax.Precision.HIGHEST if dt == jnp.float32
+                 else jax.lax.Precision.DEFAULT)
 
-    in_specs = [
-        pl.BlockSpec(memory_space=pl.ANY),  # band stays in HBM
-        pl.BlockSpec(memory_space=pl.ANY),  # x stays in HBM
-    ]
-    row_block = pl.BlockSpec(
-        (G * br, tc), lambda j, s, *_: (s, j), memory_space=pltpu.VMEM
-    )
+    tile_spec = pl.BlockSpec((br, tc), lambda j, i: (i, j))
+    operands = [base, rows[0], rows[1], band, x]
+    in_specs = [pl.BlockSpec()] * 5  # whole arrays, indexed in-kernel
     if hop:
-        in_specs.append(row_block)
+        operands.append(x0)
+        in_specs.append(tile_spec)
     if has_c:
-        in_specs.append(row_block)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(cp // tc, nsb),
-        in_specs=in_specs,
-        out_specs=row_block,
-        scratch_shapes=[
-            pltpu.VMEM((nb, G * W_max, br, bc), band.dtype),
-            pltpu.VMEM((R, bc, tc), x.dtype),
-            pltpu.SemaphoreType.DMA((nb,)),
-            pltpu.SemaphoreType.DMA((R,)),
-        ],
-    )
-
-    operands = (base, sched, band, x) + ((x0,) if hop else ()) + (
-        (c,) if has_c else ()
-    )
-    # Operand index of x0 counts the scalar-prefetch args (base, sched).
-    aliases = {4: 0} if (donate_x0 and hop) else {}
+        operands.append(c)
+        in_specs.append(tile_spec)
+    n_tap_blocks = n_rows * max_width
     y = pl.pallas_call(
-        functools.partial(_kernel_ragged, levels=tuple(levels), br=br,
-                          bc=bc, tc=tc, R=R, G=G, hop=hop, has_c=has_c,
-                          band_scale=band_scale, pa=prefetch_ahead),
-        out_shape=jax.ShapeDtypeStruct((mp, cp), x.dtype),
-        grid_spec=grid_spec,
+        functools.partial(
+            _kernel, bc=bc, tc=tc, n_cb=x.shape[0] // bc, hop=hop,
+            has_c=has_c, band_scale=band_scale, precision=precision,
+        ),
+        out_shape=jax.ShapeDtypeStruct((out_rows, cp), dt),
+        grid=(cp // tc, n_rows),
+        in_specs=in_specs,
+        out_specs=tile_spec,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=warps,
+                                             num_stages=stages),
+        input_output_aliases={5: 0} if (donate_x0 and hop) else {},
         interpret=interpret,
-        input_output_aliases=aliases,
+        name="banded_hop_q" if quant else "banded_hop",
         cost_estimate=pl.CostEstimate(
-            flops=2 * total * br * bc * cp,
-            bytes_accessed=(
-                band.size * band.dtype.itemsize * (cp // tc)
-                + (3 + has_c if hop else 2) * mp * cp * x.dtype.itemsize
-            ),
+            flops=2 * n_tap_blocks * br * bc * cp,
+            bytes_accessed=int(T * br * bc * dt.itemsize
+                               + (3 + has_c if hop else 2)
+                               * out_rows * cp * dt.itemsize),
             transcendentals=0,
         ),
     )(*operands)
-    return y[:, :C]
+    return y[:, :C] if cp != C else y
 
 
-def pack_dkw_from_ragged(band_flat, sched, levels, G: int, br: int,
-                         bc: int):
-    """Repack the flat ragged band for the deep-K window kernel.
-
-    The tap-loop kernels issue W separate ``[br,bc]@[bc,tc]`` MXU dots
-    per block-row; slope-fit probes (`_probe.py mxu`, DESIGN.md §16)
-    measure ONE deep-K dot of the same FLOPs ~10%% faster for int8
-    (311 vs 283.6 TOP/s) — the per-dot issue overhead is real at K=128.
-    This layout makes the single wide dot possible: each block-row's
-    W_l blocks are stored side by side in the LANE dim as ``[br,
-    W_l*bc]``, one array per width level (``[n_rows_l, br, W_l*bc]``),
-    rows ordered by super-step.  Returns ``(bands, sched_dkw)`` where
-    ``sched_dkw`` row 0 holds each step's ROW offset into its level's
-    array (rows 1-2 unchanged: level index, column high-water).
-    """
-    import numpy as np
-
-    offs, lvl_idx, hw = (np.asarray(v, np.int64) for v in sched)
-    nsb = len(offs)
-    counts = np.zeros(len(levels), np.int64)
-    row_off = np.zeros(nsb, np.int64)
-    for s in range(nsb):
-        li = int(lvl_idx[s])
-        row_off[s] = counts[li]
-        counts[li] += G
-    bands = [
-        np.zeros((max(int(counts[i]), G), br, levels[i] * bc),
-                 band_flat.dtype)
-        for i in range(len(levels))
-    ]
-    for s in range(nsb):
-        li = int(lvl_idx[s])
-        w = levels[li]
-        blk = band_flat[int(offs[s]): int(offs[s]) + G * w]
-        # [G, w, br, bc] -> [G, br, w*bc]: blocks side by side in lanes.
-        blk = blk.reshape(G, w, br, bc).transpose(0, 2, 1, 3)
-        bands[li][int(row_off[s]): int(row_off[s]) + G] = (
-            blk.reshape(G, br, w * bc)
-        )
-    sched_dkw = np.stack([row_off, lvl_idx, hw]).astype(np.int32)
-    return bands, sched_dkw
+# ---- operator-level entry points (BandedLaplacian / QuantBanded) ----
 
 
-def _kernel_dkw(base_ref, sched_ref, *refs, levels, br, bc, tc, R, G,
-                hop, has_c=False, band_scale=None, pa=None):
-    """Deep-K window variant of ``_kernel_ragged``: ONE wide MXU dot
-    per block-row (``[br, W_l*bc] @ [W_l*bc, tc]``) instead of W_l
-    separate taps.  Needs the x window CONTIGUOUS in VMEM, so the ring
-    is extended by ``Wmax-1`` duplicate slots: a column landing in ring
-    slot ``< Wmax-1`` is mirrored past the end with a VMEM-to-VMEM
-    copy (no extra HBM traffic), making every wrap-around window a
-    contiguous ``[W_l*bc, tc]`` sublane slice."""
-    nl = len(levels)
-    band_refs, rest = refs[:nl], refs[nl:]
-    x_ref = rest[0]
-    rest = rest[1:]
-    c_ref = None
-    if hop and has_c:
-        x0_ref, c_ref, y_ref, bslab, xring, bsem, xsem, dsem = rest
-    elif hop:
-        x0_ref, y_ref, bslab, xring, bsem, xsem, dsem = rest
-    else:
-        y_ref, bslab, xring, bsem, xsem, dsem = rest
-        x0_ref = None
-    quant = band_scale is not None
-    acc_dt = jnp.int32 if quant else jnp.float32
-    j = pl.program_id(0)
-    s = pl.program_id(1)
-    nsb = pl.num_programs(1)
-    PA = PREFETCH_AHEAD if pa is None else pa
-    NB = PA + 1
-    last = nsb - 1
-    Wmax = levels[-1]
-
-    def band_dma(step, slot, li, lvl):
-        return pltpu.make_async_copy(
-            band_refs[li].at[pl.ds(sched_ref[0, step], G)],
-            bslab.at[slot, :, :, pl.ds(0, lvl * bc)],
-            bsem.at[slot],
-        )
-
-    def for_level(step, fn):
-        for i, lvl in enumerate(levels):
-            @pl.when(sched_ref[1, step] == i)
-            def _(i=i, lvl=lvl):
-                fn(i, lvl)
-
-    def x_dma(col):
-        slot = jax.lax.rem(col, R)
-        return pltpu.make_async_copy(
-            x_ref.at[pl.ds(col * bc, bc), pl.ds(j * tc, tc)],
-            xring.at[pl.ds(slot * bc, bc)],
-            xsem.at[slot],
-        )
-
-    def dup_copy(col):
-        """Mirror ring slot ``slot`` to ``R + slot`` (local VMEM copy)
-        so wrap-around windows read contiguously."""
-        slot = jax.lax.rem(col, R)
-        return pltpu.make_async_copy(
-            xring.at[pl.ds(slot * bc, bc)],
-            xring.at[pl.ds((R + slot) * bc, bc)],
-            dsem.at[slot],
-        )
-
-    def start_cols(lo, hi):
-        jax.lax.fori_loop(lo, hi, lambda c, _: (x_dma(c).start(), 0)[1], 0)
-
-    def wait_cols(lo, hi):
-        def wait_col(c, _):
-            x_dma(c).wait()
-
-            @pl.when(jax.lax.rem(c, R) < Wmax - 1)
-            def _():
-                dup_copy(c).start()
-                dup_copy(c).wait()
-
-            return 0
-
-        jax.lax.fori_loop(lo, hi, wait_col, 0)
-
-    def hi(t):
-        return sched_ref[2, jnp.minimum(t, last)]
-
-    base_s = base_ref[s * G]
-
-    @pl.when(s == 0)
-    def _():
-        for t in range(min(PA, nsb)):  # nsb is static
-            for_level(t, lambda li, lvl, t=t: band_dma(
-                t, t % NB, li, lvl).start())
-        start_cols(base_s, hi(PA - 1))
-
-    @pl.when(s + PA < nsb)
-    def _():
-        for_level(s + PA, lambda li, lvl: band_dma(
-            s + PA, jax.lax.rem(s + PA, NB), li, lvl).start())
-    start_cols(hi(s + PA - 1), hi(s + PA))
-
-    slot = jax.lax.rem(s, NB)
-    for_level(s, lambda li, lvl: band_dma(s, slot, li, lvl).wait())
-
-    @pl.when(s == 0)
-    def _():
-        wait_cols(base_s, hi(0))
-
-    @pl.when(s > 0)
-    def _():
-        wait_cols(hi(s - 1), hi(s))
-
-    def compute(li, lvl):
-        for g in range(G):
-            base_g = base_ref[s * G + g]
-            w_slot = jax.lax.rem(base_g, R)
-            xwin = xring[pl.ds(w_slot * bc, lvl * bc), :]
-            acc = jnp.dot(bslab[slot, g, :, : lvl * bc], xwin,
-                          preferred_element_type=acc_dt)
-            _emit_row(y_ref, x0_ref, c_ref, acc, g, br, hop, quant,
-                      band_scale)
-
-    for_level(s, compute)
+def _flat(L):
+    """The operator's band as the kernel's flat ``[T, br, bc]`` array."""
+    br, bc = L.block_shape
+    return L.band.reshape(-1, br, bc)
 
 
-def banded_call_dkw(bands, base, sched, x, x0=None, c=None, *, levels,
-                    ring, G, out_rows, col_tile: int = 512,
-                    interpret: bool = False,
-                    band_scale: float | None = None,
-                    prefetch_ahead: int | None = None,
-                    donate_x0: bool = False):
-    """Deep-K window banded kernel call (see ``_kernel_dkw``).
-
-    ``bands``: one array per width level, ``[n_rows_l, br, W_l*bc]``
-    (from ``pack_dkw_from_ragged``); ``sched``: int32 ``[3, nsb]`` with
-    per-level ROW offsets.  Everything else matches
-    ``banded_call_ragged``."""
-    nl = len(levels)
-    br = bands[0].shape[1]
-    bc = bands[0].shape[2] // levels[0]
-    nsb = sched.shape[1]
-    mp = out_rows
-    R = ring
-    Wmax = levels[-1]
-    assert col_tile % 128 == 0
-    assert c is None or x0 is not None, "c injection requires the hop form"
-    C = x.shape[1]
-    tc = min(col_tile, max(128, -(-C // 128) * 128))
-    cp = -(-C // tc) * tc
-    if cp != C:
-        x = jnp.pad(x, ((0, 0), (0, cp - C)))
-        if x0 is not None:
-            x0 = jnp.pad(x0, ((0, 0), (0, cp - C)))
-        if c is not None:
-            c = jnp.pad(c, ((0, 0), (0, cp - C)))
-    hop = x0 is not None
-    has_c = c is not None
-    nb = (PREFETCH_AHEAD if prefetch_ahead is None else prefetch_ahead) + 1
-
-    in_specs = [pl.BlockSpec(memory_space=pl.ANY)] * (nl + 1)
-    row_block = pl.BlockSpec(
-        (G * br, tc), lambda j, s, *_: (s, j), memory_space=pltpu.VMEM
-    )
-    if hop:
-        in_specs.append(row_block)
-    if has_c:
-        in_specs.append(row_block)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(cp // tc, nsb),
-        in_specs=in_specs,
-        out_specs=row_block,
-        scratch_shapes=[
-            pltpu.VMEM((nb, G, br, Wmax * bc), bands[0].dtype),
-            pltpu.VMEM(((R + Wmax - 1) * bc, tc), x.dtype),
-            pltpu.SemaphoreType.DMA((nb,)),
-            pltpu.SemaphoreType.DMA((R,)),
-            pltpu.SemaphoreType.DMA((R,)),
-        ],
-    )
-
-    operands = (base, sched) + tuple(bands) + (x,) + (
-        (x0,) if hop else ()
-    ) + ((c,) if has_c else ())
-    # Operand index of x0 counts scalar-prefetch args + bands + x.
-    aliases = {3 + nl: 0} if (donate_x0 and hop) else {}
-    total_blocks = sum(b.size for b in bands) // (br * bc)
-    y = pl.pallas_call(
-        functools.partial(_kernel_dkw, levels=tuple(levels), br=br,
-                          bc=bc, tc=tc, R=R, G=G, hop=hop, has_c=has_c,
-                          band_scale=band_scale, pa=prefetch_ahead),
-        out_shape=jax.ShapeDtypeStruct((mp, cp), x.dtype),
-        grid_spec=grid_spec,
-        interpret=interpret,
-        input_output_aliases=aliases,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * total_blocks * br * bc * cp,
-            bytes_accessed=(
-                sum(b.size * b.dtype.itemsize for b in bands)
-                * (cp // tc)
-                + (3 + has_c if hop else 2) * mp * cp * x.dtype.itemsize
-            ),
-            transcendentals=0,
-        ),
-    )(*operands)
-    return y[:, :C]
+def _call(L, x, x0=None, c=None, donate=False, interpret=False):
+    return banded_call(
+        _flat(L), L.base, L.rows, x, x0, c, out_rows=L.m_padded,
+        max_width=L.band_width, donate_x0=donate, interpret=interpret,
+    ).astype(x.dtype)
 
 
-@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3))
-def band_spmm(L, x: jax.Array, col_tile: int = 512,
-              interpret: bool = False) -> jax.Array:
-    """``L @ x`` for a BandedLaplacian (ops/laplacian.py).
-
-    ``x``: [Mp, C]; C is padded to a multiple of the column tile.
-    Differentiable via the symmetric-adjoint custom VJP (``dx = L @ g``);
-    the operator is a differentiable argument with zero cotangents.
-    """
-    return _band_spmm_impl(L, x, col_tile, interpret)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2,))
+def band_spmm(L, x: jax.Array, interpret: bool = False) -> jax.Array:
+    """``L @ x`` through the kernel; symmetric-adjoint VJP ``dx = L g``
+    (the operator is a differentiable argument with zero cotangents)."""
+    return _call(L, x, interpret=interpret)
 
 
-def _band_fwd(L, x, col_tile, interpret):
-    return _band_spmm_impl(L, x, col_tile, interpret), L
+def _spmm_fwd(L, x, interpret):
+    return _call(L, x, interpret=interpret), L
 
 
-def _band_bwd(col_tile, interpret, L, g):
+def _spmm_bwd(interpret, L, g):
     from cnn_graph_tpu.ops.laplacian import zero_cotangent
 
-    return zero_cotangent(L), _band_spmm_impl(L, g, col_tile, interpret)
+    return zero_cotangent(L), _call(L, g, interpret=interpret)
 
 
-def _band_call(L, x, x0, col_tile, interpret, c=None, donate=False):
-    # Enforce the VMEM model's compute-dtype assumption at the kernel
-    # boundary: auto_rows_per_step sizes the x ring in the BAND element
-    # size, but the kernel allocates the ring in x.dtype — a direct f32
-    # matmul/cheby_hop call on a bf16-band operator would double the
-    # modeled ring footprint and can exceed ~16 MiB VMEM at the tight
-    # G=8 margin (library-internal callers already cast; this covers
-    # the public API).  The result comes back in the caller's dtype.
-    cdt = L.band.dtype
-    orig = x.dtype
-    x = x.astype(cdt)
-    x0 = None if x0 is None else x0.astype(cdt)
-    c = None if c is None else c.astype(cdt)
-
-    if getattr(L, "bands_dkw", None) is not None:
-        # Deep-K window layout: one wide MXU dot per block-row
-        # (+10% int8 over the tap loop, measured; DESIGN.md §20).
-        y = banded_call_dkw(
-            L.bands_dkw, L.base, L.sched_dkw, x, x0, c,
-            levels=L.levels, ring=L.ring_slots, G=L.rows_per_step,
-            out_rows=L.m_padded, col_tile=col_tile,
-            interpret=interpret, donate_x0=donate,
-        )
-    elif getattr(L, "levels", ()):
-        import numpy as np
-
-        y = banded_call_ragged(
-            L.band, L.base, jnp.asarray(np.asarray(L.sched, np.int32)),
-            x, x0, c, levels=L.levels, ring=L.ring_slots,
-            G=L.rows_per_step, out_rows=L.m_padded, col_tile=col_tile,
-            interpret=interpret, donate_x0=donate,
-        )
-    else:
-        y = banded_call(L.band, L.base, x, x0, c, ring=L.ring_slots,
-                        G=L.rows_per_step, out_rows=L.m_padded,
-                        col_tile=col_tile, interpret=interpret,
-                        donate_x0=donate)
-    return y.astype(orig)
+band_spmm.defvjp(_spmm_fwd, _spmm_bwd)
 
 
-def band_cheby_hop_c(L, x1: jax.Array, x0: jax.Array, c: jax.Array,
-                     col_tile: int = 512,
-                     interpret: bool = False) -> jax.Array:
-    """Adjoint-chain hop ``y = 2 (L @ x1) - x0 + c`` in ONE kernel pass.
-
-    The reverse of the Chebyshev three-term recurrence is itself a
-    three-term recurrence with a per-step injection (the tap cotangent
-    ``g W_k^T``; see filters.cheby_conv_banded) — folding the injection
-    into the emission saves one full 3-transfer elementwise pass per
-    backward hop.  No VJP: this is a building block used INSIDE the
-    conv-level custom VJP, never differentiated through."""
-    if L.use_pallas:
-        return _band_call(L, x1, x0, col_tile, interpret, c=c)
-    return (2.0 * L.matmul(x1) - x0 + c).astype(x1.dtype)
+@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4))
+def band_cheby_hop(L, x1: jax.Array, x0: jax.Array, donate: bool = False,
+                   interpret: bool = False) -> jax.Array:
+    """Fused hop ``2 (L @ x1) - x0``; VJP ``dx1 = 2 L g``, ``dx0 = -g``.
+    ``donate`` writes the result over ``x0`` (chain drivers use it so
+    while-loop carries stay in fixed buffers)."""
+    return _call(L, x1, x0, donate=donate, interpret=interpret)
 
 
-def banded_call(band, base, x, x0=None, c=None, *, ring, G, out_rows,
-                col_tile: int = 512, interpret: bool = False,
-                band_scale: float | None = None,
-                prefetch_ahead: int | None = None,
-                donate_x0: bool = False):
-    """Raw banded SpMM / fused-hop kernel call on explicit fields.
-
-    ``x`` may have MORE rows than ``out_rows`` (extended-column use: the
-    sharded halo operator feeds ``[left halo | local | right halo]``
-    activations while producing only the local rows); ``base`` indexes
-    x's block rows directly.  ``c`` (requires ``x0``) folds the
-    adjoint-chain injection into the emission: ``y = 2 (L @ x) - x0 +
-    c`` in one pass.  No custom VJP here — the L-level wrappers
-    (band_spmm / band_cheby_hop) and the sharded operators define their
-    own adjoints.
-
-    ``band_scale`` enables the int8 inference path (band and x int8,
-    int32 taps, dequant/requant at emission — see QuantBandedLaplacian).
-    """
-    nbr, W, br, bc = band.shape
-    mp = out_rows
-    R = ring
-    assert nbr % G == 0, (nbr, G)
-    assert col_tile % 128 == 0, (
-        f"col_tile={col_tile} must be a multiple of 128 (TPU lane width); "
-        "a non-aligned tile yields an opaque Mosaic compile error"
-    )
-    assert c is None or x0 is not None, "c injection requires the hop form"
-    C = x.shape[1]
-    tc = min(col_tile, max(128, -(-C // 128) * 128))
-    cp = -(-C // tc) * tc
-    if cp != C:
-        x = jnp.pad(x, ((0, 0), (0, cp - C)))
-        if x0 is not None:
-            x0 = jnp.pad(x0, ((0, 0), (0, cp - C)))
-        if c is not None:
-            c = jnp.pad(c, ((0, 0), (0, cp - C)))
-    hop = x0 is not None
-    has_c = c is not None
-    nb = (PREFETCH_AHEAD if prefetch_ahead is None else prefetch_ahead) + 1
-
-    in_specs = [
-        pl.BlockSpec(memory_space=pl.ANY),  # band stays in HBM
-        pl.BlockSpec(memory_space=pl.ANY),  # x stays in HBM
-    ]
-    row_block = pl.BlockSpec(
-        (G * br, tc), lambda j, s, *_: (s, j), memory_space=pltpu.VMEM
-    )
-    if hop:
-        # x0 (and c) blocks align with y blocks; Pallas pipelines them in.
-        in_specs.append(row_block)
-    if has_c:
-        in_specs.append(row_block)
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,
-        grid=(cp // tc, nbr // G),
-        in_specs=in_specs,
-        out_specs=row_block,
-        scratch_shapes=[
-            pltpu.VMEM((nb, G, W, br, bc), band.dtype),     # band slabs
-            pltpu.VMEM((R, bc, tc), x.dtype),               # x column ring
-            pltpu.SemaphoreType.DMA((nb,)),
-            pltpu.SemaphoreType.DMA((R,)),
-        ],
-    )
-
-    operands = (base, band, x) + ((x0,) if hop else ()) + (
-        (c,) if has_c else ()
-    )
-    # Operand index of x0 counts the scalar-prefetch arg (base).  The hop
-    # writes block (s, j) only after reading x0's block (s, j), so the
-    # in-place alias is safe; see banded_call_ragged for why chains use it.
-    aliases = {3: 0} if (donate_x0 and hop) else {}
-    y = pl.pallas_call(
-        functools.partial(_kernel, W=W, br=br, bc=bc, tc=tc, R=R, G=G,
-                          hop=hop, has_c=has_c, band_scale=band_scale,
-                          pa=prefetch_ahead),
-        out_shape=jax.ShapeDtypeStruct((mp, cp), x.dtype),
-        grid_spec=grid_spec,
-        interpret=interpret,
-        input_output_aliases=aliases,
-        cost_estimate=pl.CostEstimate(
-            flops=2 * nbr * W * br * bc * cp,
-            bytes_accessed=(
-                band.size * band.dtype.itemsize * (cp // tc)
-                + (3 + has_c if hop else 2) * mp * cp * x.dtype.itemsize
-            ),
-            transcendentals=0,
-        ),
-    )(*operands)
-    return y[:, :C]
+def _hop_fwd(L, x1, x0, donate, interpret):
+    return _call(L, x1, x0, donate=donate, interpret=interpret), L
 
 
-def _band_spmm_impl(L, x: jax.Array, col_tile: int = 512,
-                    interpret: bool = False) -> jax.Array:
-    return _band_call(L, x, None, col_tile, interpret)
-
-
-band_spmm.defvjp(_band_fwd, _band_bwd)
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(3, 4, 5))
-def band_cheby_hop(L, x1: jax.Array, x0: jax.Array, col_tile: int = 512,
-                   interpret: bool = False,
-                   donate: bool = False) -> jax.Array:
-    """Fused Chebyshev recurrence hop ``y = 2 (L @ x1) - x0``.
-
-    One kernel pass instead of SpMM + XLA elementwise: at 50k nodes /
-    C=512 the separate update costs three extra full-activation HBM
-    transfers per hop.  Symmetric-adjoint VJP: ``dx1 = 2 L g``,
-    ``dx0 = -g``.  ``donate`` aliases ``x0``'s buffer as the output
-    (safe: the kernel reads each x0 block before writing it); XLA keeps
-    a defensive copy if x0 has other uses, so it only helps — chain
-    drivers (``ops.cheby_finals``) use it to keep while-loop carries in
-    fixed buffers.
-    """
-    return _band_call(L, x1, x0, col_tile, interpret, donate=donate)
-
-
-def _hop_fwd(L, x1, x0, col_tile, interpret, donate):
-    return _band_call(L, x1, x0, col_tile, interpret, donate=donate), L
-
-
-def _hop_bwd(col_tile, interpret, donate, L, g):
+def _hop_bwd(donate, interpret, L, g):
     from cnn_graph_tpu.ops.laplacian import zero_cotangent
 
-    dx1 = 2.0 * _band_spmm_impl(L, g, col_tile, interpret)
-    return zero_cotangent(L), dx1, -g
+    return (zero_cotangent(L), 2.0 * _call(L, g, interpret=interpret),
+            -g)
 
 
 band_cheby_hop.defvjp(_hop_fwd, _hop_bwd)
+
+
+def band_cheby_hop_c(L, x1: jax.Array, x0: jax.Array, c: jax.Array,
+                     interpret: bool = False) -> jax.Array:
+    """Adjoint-chain hop ``2 (L @ x1) - x0 + c`` in one kernel pass.  No
+    VJP: it runs inside ``cheby_conv_banded``'s own backward."""
+    return _call(L, x1, x0, c, interpret=interpret)

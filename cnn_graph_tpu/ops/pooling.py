@@ -2,7 +2,7 @@
 
 The coarsening permutation (graphs/coarsening.py) lays each coarse node's
 children out contiguously, so pooling by a power-of-two factor p is a
-reshape + reduction over p-sized groups — a perfect fit for the TPU VPU
+reshape + reduction over p-sized groups — one fused elementwise pass
 (the reference routes this through 4-D ``tf.nn.max_pool``/``avg_pool``,
 lib/graph_conv.py:201-218).
 

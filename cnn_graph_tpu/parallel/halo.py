@@ -1,19 +1,19 @@
 """Halo-exchange node parallelism: ship only boundary nodes per hop.
 
 The all-gather operator (parallel/node_sharded.py) moves every shard's
-full activation block to every chip each hop — O(M * C) bytes on the ICI
-per hop.  For graphs with a small edge cut under a contiguous (e.g. RCM)
+full activation block to every device each hop — O(M * C) bytes of
+interconnect traffic per hop.  For graphs with a small edge cut under a contiguous (e.g. RCM)
 node ordering, each shard's rows only reference a thin halo of remote
 nodes; this module precomputes the exchange plan on the host and runs the
 hop as
 
     send_buf = gather(x_local, send_idx)        # boundary rows, per peer
-    recv     = all_to_all(send_buf, 'nodes')    # one ICI exchange
-    y_local  = L_ext @ concat([x_local, recv])  # local MXU matmul
+    recv     = all_to_all(send_buf, 'nodes')    # one exchange
+    y_local  = L_ext @ concat([x_local, recv])  # local matmul
 
 moving only O(halo * C) bytes.  This is the framework's custom
 communication layer (SURVEY.md §2.3: the reference has no distributed
-execution at all; this is the TPU-native scale-out path for the
+execution at all; this is the framework's scale-out path for the
 Chebyshev SpMM).
 
 The plan is SPMD-uniform: per-peer halos are padded to the maximum pair

@@ -1,16 +1,20 @@
 """Device mesh construction for multi-chip / multi-host execution.
 
 The reference is strictly single-device (SURVEY.md §2.3: one tf.Session,
-no NCCL/MPI anywhere).  The TPU framework scales through ``jax.sharding``:
+no NCCL/MPI anywhere).  This framework scales through ``jax.sharding``:
 a logical mesh with axes
 
 * ``data``  — batch data parallelism (gradients psum over this axis),
 * ``nodes`` — graph-node model parallelism (Laplacian rows + activations
   edge-partitioned over this axis; see parallel/node_sharded.py).
 
-On a multi-host pod slice call ``jax.distributed.initialize()`` first; the
-mesh then spans all hosts' devices, with the convention that ``data`` maps
-to the slower (DCN) axis and ``nodes`` stays inside a slice (ICI).
+The mesh follows the algorithm, not the wiring: the GPUs of one host are
+joined all to all by NVLink at one rate, so any device order serves.
+XLA hands the collectives to NCCL.  Across hosts, call
+``jax.distributed.initialize()`` first; the mesh then spans all hosts'
+devices, and ``nodes`` (which exchanges halos every hop) should stay
+within a host while ``data`` (one gradient reduction per step) spans
+hosts.
 """
 
 from __future__ import annotations

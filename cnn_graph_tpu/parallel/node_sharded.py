@@ -1,10 +1,10 @@
 """Node-dimension (tensor) parallelism: edge-partitioned Laplacian SpMM.
 
 The Chebyshev recurrence's hot op is ``L @ X`` over the node axis.  To
-scale past one chip's HBM we row-partition L over the mesh's ``nodes``
+scale past one device's memory we row-partition L over the mesh's ``nodes``
 axis: each shard owns the Laplacian rows (all columns) and the activation
 rows for M/n nodes.  Per hop, each shard all-gathers the activation rows
-it lacks over ICI and contracts its local row block:
+it lacks and contracts its local row block:
 
     X_full  = all_gather(X_local, 'nodes')        # [Mp, C] on every shard
     Y_local = L_rows_local @ X_full               # [Mp/n, C]
@@ -88,7 +88,7 @@ def node_sharded_laplacian(
 ) -> NodeShardedLaplacian:
     """Build a row-sharded dense Laplacian operator on ``mesh``.
 
-    Node count is padded so every shard holds an MXU-aligned row block.
+    Node count is padded so every shard holds a 128-aligned row block.
     """
     if rescale:
         L = rescale_laplacian(L, lmax=lmax)

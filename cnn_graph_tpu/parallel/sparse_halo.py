@@ -5,15 +5,19 @@ The dense halo operator (parallel/halo.py) stores each shard's rows as a
 dense ``[Ms, Ms + n*H]`` block — fine to ~10k nodes/shard, hopeless at
 ogbn-papers100M scale (BASELINE.json config 5).  This operator keeps the
 same exchange plan but stores each shard's extended-column matrix as
-MXU-tile block-sparse rows (ops/laplacian.py packing), padded to the
-maximum block count across shards so every shard runs one SPMD program:
+128 x 128 block-sparse rows in the grouped layout of
+``ops.laplacian.pack_bsr_groups``, with one static group list for all
+shards so every shard runs one SPMD program:
 
     x_ext   = [local rows | halo recv]           (one all_to_all per hop)
-    partial = blocks[b] @ x_ext[cols[b]]         (dense MXU tiles)
-    y_local = segment_sum(partial, block_rows)
+    y_local[r] = sum_k blocks[r, k] @ x_ext[cols[r, k]]   (dense tiles)
 
-Per-shard memory is O(local nnz-blocks), per-hop ICI traffic is
-O(edge cut) — the multi-host scale path for the Chebyshev recurrence.
+A shard's j-th longest block row is padded to the longest j-th row
+among shards (rounded to a tile-count level), so shards of similar
+degree profile store under 1.5x their nonzero tiles, and none stores
+more than padding every row to the longest would; per-hop halo traffic
+is O(edge cut) — the multi-device scale path for the Chebyshev
+recurrence.
 """
 
 from __future__ import annotations
@@ -28,10 +32,15 @@ import scipy.sparse
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from cnn_graph_tpu.graphs.construction import rescale_laplacian
+from cnn_graph_tpu.ops.backend import band_kernel
 from cnn_graph_tpu.ops.laplacian import (
     ChebyHopMixin,
     QuantOpMixin,
+    global_int8,
+    bsr_windows,
     pack_block_sparse,
+    pack_bsr_groups,
+    quant_emit,
 )
 from cnn_graph_tpu.parallel.halo import build_halo_plan, halo_exchange_columns
 
@@ -42,22 +51,24 @@ __all__ = ["SparseHaloLaplacian", "BandedSparseHaloLaplacian",
 
 @functools.partial(
     jax.tree_util.register_dataclass,
-    data_fields=["blocks", "block_rows", "block_cols", "send_idx"],
+    data_fields=["blocks", "block_cols", "row_pos", "send_idx"],
     meta_fields=["mesh", "m", "m_padded", "nnz", "halo", "rows_per_shard",
-                 "block_shape", "ext_cols_padded"],
+                 "block_shape", "ext_cols_padded", "groups", "n_tiles"],
 )
 @dataclasses.dataclass(frozen=True)
 class SparseHaloLaplacian(ChebyHopMixin):
     """Row-sharded block-sparse Laplacian with halo exchange.
 
     Leading axis of every data field is the shard axis (sharded
-    P('nodes')); block counts are padded to the max across shards with
-    zero blocks at (row 0, col 0) — they contribute nothing.
+    P('nodes')); each shard's tiles are in the grouped layout of
+    ``pack_bsr_groups`` under the shared ``groups``, padding slots zero
+    tiles at column 0 — they contribute nothing.  ``n_tiles`` counts
+    the nonzero tiles over all shards.
     """
 
-    blocks: jax.Array       # [n, nb_max, br, bc]
-    block_rows: jax.Array   # [n, nb_max] int32 (sorted per shard)
-    block_cols: jax.Array   # [n, nb_max] int32 (extended-column blocks)
+    blocks: jax.Array       # [n, T, br, bc]
+    block_cols: jax.Array   # [n, T] int32 (extended-column blocks)
+    row_pos: jax.Array      # [n, nrb_s] int32
     send_idx: jax.Array     # [n, n, H] int32
     mesh: Mesh
     m: int
@@ -67,6 +78,8 @@ class SparseHaloLaplacian(ChebyHopMixin):
     rows_per_shard: int
     block_shape: tuple
     ext_cols_padded: int    # extended column space, padded to bc
+    groups: tuple
+    n_tiles: int
 
     @property
     def compute_dtype(self):
@@ -77,8 +90,7 @@ class SparseHaloLaplacian(ChebyHopMixin):
 
         Differentiable via a custom VJP (``dx = L @ g`` — the rescaled
         Laplacian is symmetric), which keeps autodiff out of the
-        shard_map internals (JAX cannot transpose the gather/segment-sum
-        pattern under partially-manual meshes)."""
+        shard_map internals."""
         return _sparse_halo_matmul(self, x)
 
     def _matmul_impl(self, x: jax.Array) -> jax.Array:
@@ -90,11 +102,11 @@ def _sparse_apply(op, x: jax.Array, x0: jax.Array | None,
     """Shared shard-local BSR apply for the f32 and int8 operators.
 
     ``band_scale`` enables the quantized path: int8 blocks x int8
-    activations, int32 tile taps + segment_sum, fused hop update and
+    activations, int32 tile taps per row group, fused hop update and
     dequant/requant at emission — the same integer arithmetic as
     ``QuantBandedLaplacian._call``, so the quantized BSR-halo chain is
     bit-exact with the single-chip one (and the halo all_to_all moves
-    int8 payloads — half the bf16 ICI bytes)."""
+    int8 payloads — half the bf16 bytes)."""
     n = op.mesh.shape["nodes"]
     H = op.halo
     br, bc = op.block_shape
@@ -102,44 +114,25 @@ def _sparse_apply(op, x: jax.Array, x0: jax.Array | None,
     ext_p = op.ext_cols_padded
     quant = band_scale is not None
 
-    def local_matmul(blocks, brows, bcols, send_idx_local, *xs):
-        blocks, brows, bcols = blocks[0], brows[0], bcols[0]
+    def local_matmul(blocks, bcols, row_pos, send_idx_local, *xs):
+        blocks, bcols, row_pos = blocks[0], bcols[0], row_pos[0]
         x_local = xs[0]
         x0_local = xs[1] if len(xs) > 1 else None
         x_ext = halo_exchange_columns(x_local, send_idx_local, n, H)
         pad = ext_p - x_ext.shape[0]
         if pad:
             x_ext = jnp.pad(x_ext, ((0, pad), (0, 0)))
-        xb = x_ext.reshape(ext_p // bc, bc, -1)
-        gathered = jnp.take(xb, bcols, axis=0)  # [nb, bc, C]
         if quant:
-            partial = jnp.einsum(
-                "nij,njc->nic", blocks, gathered,
-                preferred_element_type=jnp.int32,
-            )
-            acc = jax.ops.segment_sum(
-                partial, brows, num_segments=ms // br,
-                indices_are_sorted=True,
-            ).reshape(ms, -1)
-            y = band_scale * acc.astype(jnp.float32)
-            if x0_local is not None:
-                y = 2.0 * y - x0_local.astype(jnp.float32)
-            return jnp.clip(jnp.round(y), -127.0, 127.0).astype(
-                x_local.dtype
-            )
-        partial = jnp.einsum(
-            "nij,njc->nic", blocks.astype(x.dtype), gathered,
-            preferred_element_type=x.dtype,
-        )
-        yb = jax.ops.segment_sum(
-            partial, brows, num_segments=ms // br,
-            indices_are_sorted=True,
-        ).reshape(ms, -1)
+            acc = bsr_windows(blocks, bcols, row_pos, op.groups,
+                              op.block_shape, x_ext, jnp.int32)
+            return quant_emit(acc, band_scale, x0_local)
+        yb = bsr_windows(blocks.astype(x.dtype), bcols, row_pos, op.groups,
+                         op.block_shape, x_ext, x.dtype)
         if x0_local is not None:
             yb = 2.0 * yb - x0_local
         return yb.astype(x.dtype)
 
-    operands = (op.blocks, op.block_rows, op.block_cols, op.send_idx,
+    operands = (op.blocks, op.block_cols, op.row_pos, op.send_idx,
                 x) + ((x0,) if x0 is not None else ())
     in_specs = (P("nodes"), P("nodes"), P("nodes"),
                 P("nodes", None, None), P("nodes", None)) + (
@@ -163,23 +156,22 @@ def _sparse_apply(op, x: jax.Array, x0: jax.Array | None,
     jax.tree_util.register_dataclass,
     data_fields=["band", "base", "colperm", "send_idx"],
     meta_fields=["mesh", "m", "m_padded", "nnz", "halo", "rows_per_shard",
-                 "block_shape", "ring_slots", "rows_per_step",
-                 "use_pallas", "ext_cols_padded"],
+                 "block_shape", "ext_cols_padded"],
 )
 @dataclasses.dataclass(frozen=True)
 class BandedSparseHaloLaplacian(ChebyHopMixin):
     """Sparse-halo operator whose per-shard compute is the BANDED kernel.
 
     For graphs whose shards are internally bandable even when the global
-    ordering is not (VERDICT round-2 task 8): each shard's extended-column
+    ordering is not: each shard's extended-column
     matrix gets a private column ordering (by mean nonzero row — data
     field ``colperm``) that pulls its referenced halo slots into band
     position, then packs into the uniform band layout
     (``band [n, nbr_s, W, br, bc]``, ``base [n, nbr_s]`` monotone per
     shard).  Per hop the shard gathers ``x_ext[colperm]`` (one extra
-    activation pass) and runs ``ops.pallas_band.banded_call`` — the same
-    sliding-window kernel as the single-chip path — instead of the BSR
-    gather/segment-sum.  Exchange plan and ICI traffic are identical to
+    activation pass) and runs the single-chip banded pass (on the GPU
+    ``ops.pallas_band.banded_call``) instead of the BSR
+    row-group gathers.  Exchange plan and halo traffic are identical to
     SparseHaloLaplacian's.
     """
 
@@ -194,9 +186,6 @@ class BandedSparseHaloLaplacian(ChebyHopMixin):
     halo: int
     rows_per_shard: int
     block_shape: tuple
-    ring_slots: int
-    rows_per_step: int
-    use_pallas: bool
     ext_cols_padded: int
 
     @property
@@ -234,14 +223,18 @@ def _banded_sparse_apply(op, x: jax.Array, x0: jax.Array | None,
         if pad:
             x_ext = jnp.pad(x_ext, ((0, pad), (0, 0)))
         x_perm = jnp.take(x_ext, colperm, axis=0)
-        if op.use_pallas:
-            from cnn_graph_tpu.ops.pallas_band import banded_call
+        _nb, W, _br, _bc = band.shape
+        if band_kernel(band.dtype):
+            from cnn_graph_tpu.ops.pallas_band import (
+                banded_call,
+                uniform_rows,
+            )
 
             return banded_call(
-                band, base, x_perm, x0_local, ring=op.ring_slots,
-                G=op.rows_per_step, out_rows=ms, band_scale=band_scale,
+                band.reshape(-1, br, bc), base,
+                jnp.asarray(uniform_rows(_nb, W)), x_perm, x0_local,
+                out_rows=ms, max_width=W, band_scale=band_scale,
             ).astype(x.dtype)
-        _nb, W, _br, _bc = band.shape
         xb = x_perm.reshape(ext_p // bc, bc, -1)
         cols = base[:, None] + jnp.arange(W)[None, :]
         wins = jnp.take(xb, cols, axis=0)
@@ -250,12 +243,7 @@ def _banded_sparse_apply(op, x: jax.Array, x0: jax.Array | None,
                 "iwab,iwbc->iac", band, wins,
                 preferred_element_type=jnp.int32,
             ).reshape(ms, -1)
-            y = band_scale * acc.astype(jnp.float32)
-            if x0_local is not None:
-                y = 2.0 * y - x0_local.astype(jnp.float32)
-            return jnp.clip(jnp.round(y), -127.0, 127.0).astype(
-                x_local.dtype
-            )
+            return quant_emit(acc, band_scale, x0_local)
         y = jnp.einsum(
             "iwab,iwbc->iac", band.astype(x.dtype), wins,
             preferred_element_type=jnp.float32,
@@ -318,12 +306,9 @@ _banded_sparse_halo_hop.defvjp(_bshh_fwd, _bshh_bwd)
 
 
 def _build_banded_sparse_halo(packed, W, mesh, m, mp, nnz, H, ms, ext_p,
-                              block_shape, send_idx, dtype, use_pallas):
+                              block_shape, send_idx, dtype):
     """Assemble the uniform [n, nbr_s, W, br, bc] band arrays from the
     per-shard packings (W maxed across shards for one SPMD program)."""
-    from cnn_graph_tpu.ops.laplacian import auto_rows_per_step
-    from cnn_graph_tpu.ops.pallas_band import ROWS_PER_STEP, ring_span
-
     br, bc = block_shape
     n = len(packed)
     nbr = ms // br
@@ -340,16 +325,6 @@ def _build_banded_sparse_halo(packed, W, mesh, m, mp, nnz, H, ms, ext_p,
         base_all[s] = base.astype(np.int32)
         colperm[s] = order.astype(np.int32)
 
-    if use_pallas is None:
-        use_pallas = jax.default_backend() not in ("cpu",)
-    elem = jnp.dtype(dtype).itemsize
-    g_auto = min(
-        auto_rows_per_step(base_all[s], W, br, bc, elem) for s in range(n)
-    )
-    G = next(g for g in range(min(g_auto, ROWS_PER_STEP), 0, -1)
-             if nbr % g == 0)
-    ring = max(ring_span(base_all[s], W, G) for s in range(n))
-
     shard = lambda spec: NamedSharding(mesh, spec)  # noqa: E731
     return BandedSparseHaloLaplacian(
         band=jax.device_put(jnp.asarray(band, dtype=dtype),
@@ -365,9 +340,6 @@ def _build_banded_sparse_halo(packed, W, mesh, m, mp, nnz, H, ms, ext_p,
         halo=H,
         rows_per_shard=ms,
         block_shape=block_shape,
-        ring_slots=ring,
-        rows_per_step=G,
-        use_pallas=use_pallas,
         ext_cols_padded=ext_p,
     )
 
@@ -405,22 +377,22 @@ def _pack_local_banded(block, ms, ext_p, block_shape):
 
 @functools.partial(
     jax.tree_util.register_dataclass,
-    data_fields=["blocks", "block_rows", "block_cols", "send_idx"],
+    data_fields=["blocks", "block_cols", "row_pos", "send_idx"],
     meta_fields=["mesh", "m", "m_padded", "nnz", "halo", "rows_per_shard",
-                 "block_shape", "ext_cols_padded", "band_scale",
-                 "act_scale", "headroom"],
+                 "block_shape", "ext_cols_padded", "groups", "n_tiles",
+                 "band_scale", "act_scale", "headroom"],
 )
 @dataclasses.dataclass(frozen=True)
 class QuantSparseHaloLaplacian(QuantOpMixin):
     """Int8 twin of :class:`SparseHaloLaplacian` — multi-chip serving on
-    SCATTERED graphs: int8 tile taps + int32 segment_sum per shard, int8
-    recurrence carries over the all_to_all halo (half the bf16 ICI
+    SCATTERED graphs: int8 tile taps with int32 sums per shard, int8
+    recurrence carries over the all_to_all halo (half the bf16 halo
     bytes), dequant/requant at emission (bit-exact with the single-chip
-    quantized chain; DESIGN.md §13)."""
+    quantized chain)."""
 
-    blocks: jax.Array       # [n, nb_max, br, bc] int8
-    block_rows: jax.Array
+    blocks: jax.Array       # [n, T, br, bc] int8
     block_cols: jax.Array
+    row_pos: jax.Array
     send_idx: jax.Array
     mesh: Mesh
     m: int
@@ -430,6 +402,8 @@ class QuantSparseHaloLaplacian(QuantOpMixin):
     rows_per_shard: int
     block_shape: tuple
     ext_cols_padded: int
+    groups: tuple
+    n_tiles: int
     band_scale: float = 1.0
     act_scale: float = 1.0
     headroom: float = 2.0
@@ -445,14 +419,13 @@ class QuantSparseHaloLaplacian(QuantOpMixin):
     jax.tree_util.register_dataclass,
     data_fields=["band", "base", "colperm", "send_idx"],
     meta_fields=["mesh", "m", "m_padded", "nnz", "halo", "rows_per_shard",
-                 "block_shape", "ring_slots", "rows_per_step",
-                 "use_pallas", "ext_cols_padded", "band_scale",
+                 "block_shape", "ext_cols_padded", "band_scale",
                  "act_scale", "headroom"],
 )
 @dataclasses.dataclass(frozen=True)
 class QuantBandedSparseHaloLaplacian(QuantOpMixin):
     """Int8 twin of :class:`BandedSparseHaloLaplacian`: the per-shard
-    quantized banded kernel behind the all_to_all halo exchange."""
+    quantized banded pass behind the all_to_all halo exchange."""
 
     band: jax.Array         # [n, nbr_s, W, br, bc] int8
     base: jax.Array
@@ -465,9 +438,6 @@ class QuantBandedSparseHaloLaplacian(QuantOpMixin):
     halo: int
     rows_per_shard: int
     block_shape: tuple
-    ring_slots: int
-    rows_per_step: int
-    use_pallas: bool
     ext_cols_padded: int
     band_scale: float = 1.0
     act_scale: float = 1.0
@@ -489,20 +459,10 @@ class QuantBandedSparseHaloLaplacian(QuantOpMixin):
 def quantize_sparse_halo(op, headroom: float = 2.0, sample_x: float = 1.0):
     """Quantize a sparse-halo operator (BSR or per-shard-banded) for
     int8 multi-chip serving.  Same scale design as ``quantize_banded``:
-    one global band scale ``max|L| / 127`` (a jitted reduce over the
+    one global band scale ``max|L| / 127`` (a device reduce over the
     sharded data), one activation scale with carry ``headroom``."""
     data = op.band if isinstance(op, BandedSparseHaloLaplacian) else op.blocks
-    shard = NamedSharding(op.mesh, P("nodes"))
-    s_b = float(jax.device_get(
-        jax.jit(lambda b: jnp.max(jnp.abs(b.astype(jnp.float32))))(data)
-    ))
-    s_b = s_b / 127.0 if s_b > 0.0 else 1.0
-    data_q = jax.jit(
-        lambda b: jnp.clip(
-            jnp.round(b.astype(jnp.float32) / s_b), -127, 127
-        ).astype(jnp.int8),
-        out_shardings=shard,
-    )(data)
+    data_q, s_b = global_int8(data)
     common = dict(
         send_idx=op.send_idx, mesh=op.mesh, m=op.m, m_padded=op.m_padded,
         nnz=op.nnz, halo=op.halo, rows_per_shard=op.rows_per_shard,
@@ -512,13 +472,11 @@ def quantize_sparse_halo(op, headroom: float = 2.0, sample_x: float = 1.0):
     )
     if isinstance(op, BandedSparseHaloLaplacian):
         return QuantBandedSparseHaloLaplacian(
-            band=data_q, base=op.base, colperm=op.colperm,
-            ring_slots=op.ring_slots, rows_per_step=op.rows_per_step,
-            use_pallas=op.use_pallas, **common,
+            band=data_q, base=op.base, colperm=op.colperm, **common,
         )
     return QuantSparseHaloLaplacian(
-        blocks=data_q, block_rows=op.block_rows, block_cols=op.block_cols,
-        **common,
+        blocks=data_q, block_cols=op.block_cols, row_pos=op.row_pos,
+        groups=op.groups, n_tiles=op.n_tiles, **common,
     )
 
 
@@ -550,11 +508,10 @@ def sparse_halo_laplacian(
     block_shape: tuple = (128, 128),
     fmt: str = "bsr",
     max_band_width: int = 32,
-    use_pallas: bool | None = None,
 ):
     """Build the block-sparse halo operator (RCM-order the graph first).
 
-    ``fmt``: ``"bsr"`` (default, gather/segment-sum per shard),
+    ``fmt``: ``"bsr"`` (default, grouped block rows per shard),
     ``"banded"`` (per-shard column-ordered band + the banded kernel —
     raises when any shard's band exceeds ``max_band_width``), or
     ``"auto"`` (banded when every shard fits, else bsr)."""
@@ -596,7 +553,7 @@ def sparse_halo_laplacian(
         if W <= max_band_width:
             return _build_banded_sparse_halo(
                 packed, W, mesh, m, mp, int(L.nnz), H, ms, ext_p,
-                block_shape, send_idx, dtype, use_pallas,
+                block_shape, send_idx, dtype,
             )
         if fmt == "banded":
             raise ValueError(
@@ -604,27 +561,15 @@ def sparse_halo_laplacian(
                 "use fmt='bsr' (or fewer shards)"
             )
 
-    per_shard = [pack_block_sparse(loc, (br, bc)) for loc in locals_]
-
-    nb_max = max(max(p[0].shape[0] for p in per_shard), 1)
-    blocks = np.zeros((n, nb_max, br, bc), np.float32)
-    brows = np.zeros((n, nb_max), np.int32)
-    bcols = np.zeros((n, nb_max), np.int32)
-    for s, (blk, br_s, bc_s, _ptr, _mp) in enumerate(per_shard):
-        nb = blk.shape[0]
-        blocks[s, :nb] = blk
-        brows[s, :nb] = br_s
-        bcols[s, :nb] = bc_s
-        # Padding blocks keep row/col 0 (zero contribution); keep rows
-        # sorted for segment_sum by pointing them at the LAST row block.
-        brows[s, nb:] = (ms // br) - 1
+    csrs = [pack_block_sparse(loc, (br, bc))[:4] for loc in locals_]
+    blocks, bcols, row_pos, groups = pack_bsr_groups(csrs)
 
     shard = lambda spec: NamedSharding(mesh, spec)
     return SparseHaloLaplacian(
         blocks=jax.device_put(jnp.asarray(blocks, dtype=dtype),
                               shard(P("nodes"))),
-        block_rows=jax.device_put(jnp.asarray(brows), shard(P("nodes"))),
         block_cols=jax.device_put(jnp.asarray(bcols), shard(P("nodes"))),
+        row_pos=jax.device_put(jnp.asarray(row_pos), shard(P("nodes"))),
         send_idx=jax.device_put(jnp.asarray(send_idx),
                                 shard(P("nodes", None, None))),
         mesh=mesh,
@@ -635,4 +580,6 @@ def sparse_halo_laplacian(
         rows_per_shard=ms,
         block_shape=(br, bc),
         ext_cols_padded=ext_p,
+        groups=groups,
+        n_tiles=sum(len(c[1]) for c in csrs),
     )

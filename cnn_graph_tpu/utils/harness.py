@@ -1,6 +1,6 @@
 """Experiment harness: multi-model tracking, grid search, classical baselines.
 
-TPU-native counterpart of the reference's experiment tooling
+Counterpart of the reference's experiment tooling
 (lib/utils.py:223-332): ``ModelPerf`` runs fit+evaluate and tabulates
 results across named models, ``grid_search`` sweeps hyper-parameter grids,
 and ``baseline`` pits the graph nets against classical sklearn classifiers.

@@ -16,7 +16,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import _common  # noqa: F401  (CPU escape hatch for the pinned-TPU env)
+import _common  # noqa: F401  (persistent compile cache)
 
 
 def main():

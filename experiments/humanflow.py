@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Human-flow forecasting: ResGNN / gconvLSTM over a city region graph.
 
-The TPU-native counterpart of nips2016/humanflow*.py + gconvTest.py: load
+The counterpart of nips2016/humanflow*.py + gconvTest.py: load
 a HumanTraffic dataset directory (.mat files), build the region-graph
 Laplacian from the edge matrix, train a forecasting model, and report
 RMSE (after reverse-normalization, humanflow.py:183-184) and MAPE over
@@ -21,42 +21,49 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import _common  # noqa: F401  (CPU escape hatch for the pinned-TPU env)
+import _common  # noqa: F401  (persistent compile cache)
+
+
+def write_synthetic(data_dir, nodes, seed):
+    """Fabricate a HumanTraffic-shaped dataset directory (.mat files)
+    from ``data.synthetic.synthetic_flow``."""
+    import numpy as np
+    import scipy.io
+    from cnn_graph_tpu.data.synthetic import synthetic_flow
+
+    in_m, out_m, edges = synthetic_flow(
+        n_nodes=nodes, n_steps=1400, seed=seed
+    )
+    rng = np.random.default_rng(seed + 1)
+    frac = rng.uniform(0.3, 0.7, in_m.shape)
+    split_in = np.stack([in_m * frac, in_m * (1 - frac)], axis=2)
+    frac = rng.uniform(0.3, 0.7, out_m.shape)
+    split_out = np.stack([out_m * frac, out_m * (1 - frac)], axis=2)
+    scipy.io.savemat(
+        os.path.join(data_dir, "ln_data.mat"),
+        {"inmatrix": in_m, "outmatrix": out_m,
+         "split_in_traffic": split_in, "split_out_traffic": split_out},
+    )
+    scipy.io.savemat(os.path.join(data_dir, "edge_matrix.mat"),
+                     {"edge_matrix": edges})
+    # BJ-style files: grid-shaped node count for the bj loader, and a
+    # cluster variant with a missing-data (-1) stretch.
+    scipy.io.savemat(os.path.join(data_dir, "bj_data.mat"),
+                     {"inmatrix": in_m, "outmatrix": out_m})
+    in_bad = in_m.copy()
+    in_bad[:, 700:705] = -1
+    scipy.io.savemat(os.path.join(data_dir, "bj_clus.mat"),
+                     {"inmatrix": in_bad, "outmatrix": out_m})
 
 
 def build_dataset(args):
-    import numpy as np
-    import scipy.io
     from cnn_graph_tpu.data.humantraffic import HumanTraffic
-    from cnn_graph_tpu.data.synthetic import synthetic_flow
 
     data_dir = args.data_dir
     if data_dir is None:
         print("no --data-dir: fabricating a synthetic flow dataset")
         data_dir = tempfile.mkdtemp(prefix="flow_")
-        in_m, out_m, edges = synthetic_flow(
-            n_nodes=args.nodes, n_steps=1400, seed=args.seed
-        )
-        rng = np.random.default_rng(args.seed + 1)
-        frac = rng.uniform(0.3, 0.7, in_m.shape)
-        split_in = np.stack([in_m * frac, in_m * (1 - frac)], axis=2)
-        frac = rng.uniform(0.3, 0.7, out_m.shape)
-        split_out = np.stack([out_m * frac, out_m * (1 - frac)], axis=2)
-        scipy.io.savemat(
-            os.path.join(data_dir, "ln_data.mat"),
-            {"inmatrix": in_m, "outmatrix": out_m,
-             "split_in_traffic": split_in, "split_out_traffic": split_out},
-        )
-        scipy.io.savemat(os.path.join(data_dir, "edge_matrix.mat"),
-                         {"edge_matrix": edges})
-        # BJ-style files: grid-shaped node count for the bj loader, and a
-        # cluster variant with a missing-data (-1) stretch.
-        scipy.io.savemat(os.path.join(data_dir, "bj_data.mat"),
-                         {"inmatrix": in_m, "outmatrix": out_m})
-        in_bad = in_m.copy()
-        in_bad[:, 700:705] = -1
-        scipy.io.savemat(os.path.join(data_dir, "bj_clus.mat"),
-                         {"inmatrix": in_bad, "outmatrix": out_m})
+        write_synthetic(data_dir, args.nodes, args.seed)
 
     ht = HumanTraffic(data_dir)
     loaders = {
@@ -90,7 +97,7 @@ def build_dataset(args):
     return ht, (tr, va, te, trl, val, tel), edges
 
 
-def main():
+def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--data-dir", default=None)
     p.add_argument("--datafile", default="ln_data.mat")
@@ -122,14 +129,52 @@ def main():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--save-predictions", default=None,
                    help=".mat path for test predictions (gconvTest.py:171)")
-    args = p.parse_args()
+    return p.parse_args(argv)
 
-    import numpy as np
-    import scipy.io
+
+def build(args, edges, tr):
+    """The graph model (resgnn | glstm) and its TrainConfig."""
     from scipy.sparse import csr_matrix
     from cnn_graph_tpu.graphs import construction as gc
     from cnn_graph_tpu.models import GConvForecaster, ResGNN
     from cnn_graph_tpu.ops import device_laplacian
+    from cnn_graph_tpu.train import TrainConfig
+
+    L = gc.laplacian(csr_matrix(edges), normalized=True)
+    op = device_laplacian(L)
+
+    C = tr.shape[2]
+    if args.model == "resgnn":
+        fourier_u = None
+        if args.filter == "fourier":
+            import jax.numpy as jnp
+
+            _, U = gc.fourier(L)
+            fourier_u = jnp.asarray(U, jnp.float32)
+        model = ResGNN(op, input_features=C, K=args.K,
+                       nfilter=args.nfilter, nres_layer_count=args.nres,
+                       filter=args.filter, fourier_u=fourier_u)
+    else:
+        model = GConvForecaster(
+            op, seq_closeness=args.seq, seq_period=args.seq_period,
+            seq_trend=args.seq_trend, variant=args.variant,
+            num_hidden=args.nfilter, K=args.K,
+        )
+        print("model:", model.to_string())
+
+    cfg = TrainConfig(
+        num_epochs=args.epochs, learning_rate=args.learning_rate,
+        decay_rate=0.95, decay_steps=max(tr.shape[0] // args.batch_size, 1),
+        batch_size=args.batch_size, eval_frequency=100, seed=args.seed,
+    )
+    return model, cfg
+
+
+def main():
+    args = parse_args()
+
+    import numpy as np
+    import scipy.io
     from cnn_graph_tpu.train import TrainConfig, Trainer
     from cnn_graph_tpu.utils.metrics import mape, rmse
 
@@ -169,33 +214,7 @@ def main():
             print(f"saved predictions to {args.save_predictions}")
         return
 
-    L = gc.laplacian(csr_matrix(edges), normalized=True)
-    op = device_laplacian(L)
-
-    C = tr.shape[2]
-    if args.model == "resgnn":
-        fourier_u = None
-        if args.filter == "fourier":
-            import jax.numpy as jnp
-
-            _, U = gc.fourier(L)
-            fourier_u = jnp.asarray(U, jnp.float32)
-        model = ResGNN(op, input_features=C, K=args.K,
-                       nfilter=args.nfilter, nres_layer_count=args.nres,
-                       filter=args.filter, fourier_u=fourier_u)
-    else:
-        model = GConvForecaster(
-            op, seq_closeness=args.seq, seq_period=args.seq_period,
-            seq_trend=args.seq_trend, variant=args.variant,
-            num_hidden=args.nfilter, K=args.K,
-        )
-        print("model:", model.to_string())
-
-    cfg = TrainConfig(
-        num_epochs=args.epochs, learning_rate=args.learning_rate,
-        decay_rate=0.95, decay_steps=max(tr.shape[0] // args.batch_size, 1),
-        batch_size=args.batch_size, eval_frequency=100, seed=args.seed,
-    )
+    model, cfg = build(args, edges, tr)
     trainer = Trainer(model, cfg, task="regression")
     trainer.fit(tr.astype(np.float32), trl.astype(np.float32),
                 va.astype(np.float32), val.astype(np.float32))

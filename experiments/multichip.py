@@ -1,256 +1,24 @@
 #!/usr/bin/env python
-"""Multi-chip overhead measurement (VERDICT round-2 task 3).
+"""Halo-exchange bytes of the sharded banded operator, per shard count.
 
-Only one real TPU chip is reachable in this environment, so the
-measurement splits into what CAN be measured and what must be modeled —
-each mode prints the numbers that feed the scaling-efficiency projection
-recorded in BASELINE.md:
-
-  wrapper  (real TPU)  — the 50k banded config through
-      ``banded_halo_laplacian`` on a nodes=1 Mesh vs the plain
-      single-chip kernel: bounds the shard_map + operator wrapper cost
-      with zero communication (no ppermutes are emitted at n=1).
-  comm     (CPU mesh)  — per-hop exchanged halo bytes vs the graph cut
-      for n in {2,4,8}, plus the interior fraction available to hide the
-      exchange behind (overlap=True's budget).  Run with
-      CNN_GRAPH_CPU=1 XLA_FLAGS=--xla_force_host_platform_device_count=8.
+For n shards over the ``nodes`` mesh axis, prints the per-hop halo bytes
+the banded-halo operator moves, the graph cut of the contiguous row
+partition, the ideal exchange (every remote node referenced, once) and
+the interior fraction available to hide the exchange behind
+(overlap=True's budget).  Shapes only: it runs on virtual CPU devices.
+The timed four-device path is ``python chip_smoke.py --multichip``.
 
 Usage:
-  python experiments/multichip.py wrapper [side]
-  CNN_GRAPH_CPU=1 XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-      python experiments/multichip.py comm [side]
+  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+      python experiments/multichip.py comm [side] [n ...]
 """
 
 import sys
-import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import _common  # noqa: E402,F401
-
-
-def _chain(op, x, K=25, outer=4):
-    """Per-SpMM time of the per-hop recurrence, slope-fit over two outer
-    counts so the fixed host dispatch cancels (DESIGN.md §16)."""
-    import jax
-    import jax.numpy as jnp
-
-    from cnn_graph_tpu.utils.profiling import slope_time
-
-    def make_run(u):
-        @jax.jit
-        def run(op, x):
-            def body(_, carry):
-                x0, x1 = carry
-
-                def hop(_, c):
-                    a, b = c
-                    return b, op.cheby_hop(b, a)
-
-                a, b = jax.lax.fori_loop(0, K - 1, hop, (x0, x1))
-                s = jax.lax.rsqrt(
-                    jnp.mean(a.astype(jnp.float32) ** 2) + 1e-6
-                )
-                return (a * s).astype(x.dtype), b
-
-            out = jax.lax.fori_loop(0, u, body, (x, op.matmul(x)))[1]
-            return jnp.mean(out.astype(jnp.float32) ** 2)
-
-        return run
-
-    per_block, _f = slope_time(make_run, (op, x), units=(outer, 4 * outer))
-    return per_block / (K - 1)
-
-
-def _chain_q(qop, x, K=25, outer=4):
-    import jax
-    import jax.numpy as jnp
-
-    from cnn_graph_tpu.utils.profiling import slope_time
-
-    def make_run(u):
-        @jax.jit
-        def run(qop, x):
-            xq = qop.quantize(x.astype(jnp.float32))
-
-            def body(_, carry):
-                def hop(_, c):
-                    p, q = c
-                    return q, qop.cheby_hop_q(q, p)
-
-                return jax.lax.fori_loop(0, K - 1, hop, carry)
-
-            out = jax.lax.fori_loop(0, u, body, (xq, qop.spmm_q(xq)))[1]
-            return jnp.mean(qop.dequantize(out) ** 2)
-
-        return run
-
-    per_block, _f = slope_time(make_run, (qop, x),
-                               units=(outer, 4 * outer))
-    return per_block / (K - 1)
-
-
-def main_wrapper(argv):
-    """nodes=1 shard_map wrapper cost vs the plain kernel, real chip —
-    for both the bf16 training path and the int8 serving path."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from cnn_graph_tpu.data.synthetic import city_graph
-    from cnn_graph_tpu.ops import device_laplacian, quantize_banded
-    from cnn_graph_tpu.parallel import (
-        banded_halo_laplacian,
-        make_mesh,
-        quantize_banded_halo,
-    )
-
-    side = int(argv[0]) if argv else 224
-    C = 512
-    L, _ = city_graph(side, k=8, seed=0)
-    # Both paths run the ragged layout (the default on each side since
-    # round 4), so the delta is pure wrapper cost.
-    op = device_laplacian(L, fmt="banded", dtype=jnp.bfloat16)
-    rng = np.random.default_rng(0)
-    X = jnp.asarray(rng.normal(size=(op.m_padded, C)), jnp.bfloat16)
-
-    mesh = make_mesh(data=1, nodes=1)
-    hop = banded_halo_laplacian(L, mesh, dtype=jnp.bfloat16)
-    print(f"nodes={op.m} nnz={op.nnz}; halo op at n=1: "
-          f"h_l={hop.halo_left} h_r={hop.halo_right} "
-          f"overlap={hop.overlap}", flush=True)
-
-    with mesh:
-        dt_h = _chain(hop, X)
-    dt_p = _chain(op, X)
-    print(f"bf16 plain kernel {dt_p*1e6:7.1f} us/spmm "
-          f"{op.nnz/dt_p/1e9:.4f} Gedges/s", flush=True)
-    print(f"bf16 halo wrapper {dt_h*1e6:7.1f} us/spmm "
-          f"{op.nnz/dt_h/1e9:.4f} Gedges/s")
-    print(f"bf16 wrapper overhead {(dt_h-dt_p)*1e6:+.1f} us/spmm "
-          f"({(dt_h/dt_p-1)*100:+.1f}%)", flush=True)
-
-    sample = float(np.max(np.abs(np.asarray(jax.device_get(X),
-                                            np.float32))))
-    qp = quantize_banded(op, sample_x=sample)
-    with mesh:
-        qh = quantize_banded_halo(hop, sample_x=sample)
-        dt_qh = _chain_q(qh, X)
-    dt_qp = _chain_q(qp, X)
-    print(f"int8 plain kernel {dt_qp*1e6:7.1f} us/spmm "
-          f"{op.nnz/dt_qp/1e9:.4f} Gedges/s", flush=True)
-    print(f"int8 halo wrapper {dt_qh*1e6:7.1f} us/spmm "
-          f"{op.nnz/dt_qh/1e9:.4f} Gedges/s")
-    print(f"int8 wrapper overhead {(dt_qh-dt_qp)*1e6:+.1f} us/spmm "
-          f"({(dt_qh/dt_qp-1)*100:+.1f}%)")
-
-
-def _chain_region(op, x, K=25, outer=4):
-    """Time the ONE-shard_map-region recurrence (op.cheby_chain),
-    slope-fit (fixed dispatch cancelled; DESIGN.md §16)."""
-    import jax
-    import jax.numpy as jnp
-
-    from cnn_graph_tpu.utils.profiling import slope_time
-
-    def make_run(u):
-        @jax.jit
-        def run(op, x):
-            def body(_, v):
-                s = op.cheby_chain(v, K)
-                last = s[K - 1]
-                scale = jax.lax.rsqrt(
-                    jnp.mean(last.astype(jnp.float32) ** 2) + 1e-6
-                )
-                return (last * scale).astype(v.dtype)
-
-            out = jax.lax.fori_loop(0, u, body, x)
-            return jnp.mean(out.astype(jnp.float32) ** 2)
-
-        return run
-
-    per_block, _f = slope_time(make_run, (op, x), units=(outer, 4 * outer))
-    return per_block / (K - 1)
-
-
-def _chain_region_q(qop, x, K=25, outer=4):
-    import jax
-    import jax.numpy as jnp
-
-    from cnn_graph_tpu.utils.profiling import slope_time
-
-    def make_run(u):
-        @jax.jit
-        def run(qop, x):
-            xq = qop.quantize(x.astype(jnp.float32))
-
-            def body(_, v):
-                return qop.cheby_chain_q(v, K)[K - 1]
-
-            out = jax.lax.fori_loop(0, u, body, xq)
-            return jnp.mean(qop.dequantize(out) ** 2)
-
-        return run
-
-    per_block, _f = slope_time(make_run, (qop, x),
-                               units=(outer, 4 * outer))
-    return per_block / (K - 1)
-
-
-def main_chain(argv):
-    """Per-CHAIN dispatch amortization (VERDICT round-3 next-step #8):
-    the strong-scaling projection died on a per-SpMM 78 us wrapper bound;
-    ``cheby_chain`` runs all K-1 hops inside ONE shard_map region, so the
-    dispatch cost is paid once per chain.  nodes=1 on the real chip
-    bounds the residual per-chain overhead with zero communication."""
-    import jax
-    import jax.numpy as jnp
-    import numpy as np
-
-    from cnn_graph_tpu.data.synthetic import city_graph
-    from cnn_graph_tpu.ops import device_laplacian, quantize_banded
-    from cnn_graph_tpu.parallel import (
-        banded_halo_laplacian,
-        make_mesh,
-        quantize_banded_halo,
-    )
-
-    side = int(argv[0]) if argv else 224
-    C = 512
-    L, _ = city_graph(side, k=8, seed=0)
-    op = device_laplacian(L, fmt="banded", dtype=jnp.bfloat16)
-    rng = np.random.default_rng(0)
-    X = jnp.asarray(rng.normal(size=(op.m_padded, C)), jnp.bfloat16)
-
-    mesh = make_mesh(data=1, nodes=1)
-    hop = banded_halo_laplacian(L, mesh, dtype=jnp.bfloat16)
-
-    dt_p = _chain(op, X)
-    with mesh:
-        dt_h = _chain(hop, X)          # per-hop shard_map regions
-        dt_c = _chain_region(hop, X)   # ONE region per chain
-    print(f"bf16 plain kernel   {dt_p*1e6:7.1f} us/spmm", flush=True)
-    print(f"bf16 per-hop halo   {dt_h*1e6:7.1f} us/spmm "
-          f"(overhead {(dt_h-dt_p)*1e6:+.1f} us/spmm)")
-    print(f"bf16 one-region     {dt_c*1e6:7.1f} us/spmm "
-          f"(overhead {(dt_c-dt_p)*1e6:+.1f} us/spmm, "
-          f"{(dt_c-dt_p)*24e6:+.1f} us/chain)", flush=True)
-
-    sample = float(np.max(np.abs(np.asarray(jax.device_get(X),
-                                            np.float32))))
-    qp = quantize_banded(op, sample_x=sample)
-    dt_qp = _chain_q(qp, X)
-    with mesh:
-        qh = quantize_banded_halo(hop, sample_x=sample)
-        dt_qh = _chain_q(qh, X)
-        dt_qc = _chain_region_q(qh, X)
-    print(f"int8 plain kernel   {dt_qp*1e6:7.1f} us/spmm", flush=True)
-    print(f"int8 per-hop halo   {dt_qh*1e6:7.1f} us/spmm "
-          f"(overhead {(dt_qh-dt_qp)*1e6:+.1f} us/spmm)")
-    print(f"int8 one-region     {dt_qc*1e6:7.1f} us/spmm "
-          f"(overhead {(dt_qc-dt_qp)*1e6:+.1f} us/spmm, "
-          f"{(dt_qc-dt_qp)*24e6:+.1f} us/chain)", flush=True)
 
 
 def main_comm(argv):
@@ -279,7 +47,7 @@ def main_comm(argv):
         op = banded_halo_laplacian(L, mesh)
         br = op.block_shape[0]
         # total bytes moved per hop: each directed halo is sent by n-1
-        # shards (ring ends unpaired).
+        # shards (the two end shards have one neighbour each).
         bytes_hop = (n - 1) * (op.halo_left + op.halo_right) * br * C * e
         # graph cut for this contiguous row partition
         rows_per = op.rows_per_shard
@@ -299,8 +67,7 @@ def main_comm(argv):
               f"{interior*100:>8.1f}%")
 
 
-MODES = {"wrapper": main_wrapper, "chain": main_chain,
-         "comm": main_comm}
+MODES = {"comm": main_comm}
 
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] in ("-h", "--help"):

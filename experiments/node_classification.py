@@ -5,12 +5,12 @@ BASELINE.json config 5 extends the reference family with node
 classification at scale (papers100M, multi-host edge-partitioned
 Chebyshev).  This driver trains a NodeClassifier over a synthetic
 community graph through the block-sparse operator (single chip) or the
-sparse-halo operator on a device mesh (``--mesh-nodes`` with
-CNN_GRAPH_CPU=1 and a virtual device count for simulation).
+sparse-halo operator on a device mesh (``--mesh-nodes``; on the CPU with
+JAX_PLATFORMS=cpu and a virtual device count).
 
 Run:
   python experiments/node_classification.py --nodes 100000
-  CNN_GRAPH_CPU=1 XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+  JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
       python experiments/node_classification.py --nodes 4096 --mesh-nodes 4
 """
 
@@ -21,7 +21,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-import _common  # noqa: F401  (CPU escape hatch for the pinned-TPU env)
+import _common  # noqa: F401  (persistent compile cache)
 
 
 def build_graph(n_nodes, n_classes, feat_dim, seed):
@@ -78,7 +78,7 @@ def main():
                         "int8 serving path and report the accuracy delta + "
                         "inference timing (single chip, or sharded with "
                         "--mesh-nodes under any --halo: int8 carries over "
-                        "the ICI, half the halo bytes)")
+                        "the halo exchange, half the halo bytes)")
     p.add_argument("--export", metavar="DIR", default=None,
                    help="after training, write a deployable serving "
                         "artifact (StableHLO + leaves; cnn_graph_tpu."
@@ -122,7 +122,8 @@ def main():
                   f"mesh {dict(mesh.shape)}")
         else:
             op = sparse_halo_laplacian(L, mesh)
-            print(f"sparse-halo operator: {op.blocks.shape[1]} blocks/shard, "
+            print(f"sparse-halo operator: {op.n_tiles} nonzero tiles, "
+                  f"{op.blocks.shape[1]} tile slots/shard, "
                   f"halo {op.halo} rows/peer, mesh {dict(mesh.shape)}")
     else:
         op = device_laplacian(L, fmt="auto")
@@ -200,10 +201,10 @@ def main():
     if args.int8:
         # Serving path: quantize the trained graph operator to int8 and
         # run the SAME model/params through it (cheby_conv dispatches on
-        # the quantized protocol; DESIGN.md §11).  Reports the accuracy
+        # the quantized protocol).  Reports the accuracy
         # delta vs f32 and steady-state inference time.  With
         # --mesh-nodes --halo banded, the quantized SHARDED operator
-        # serves with int8 carries over the ICI ring (DESIGN.md §13).
+        # serves with int8 carries over the halo exchange.
         from cnn_graph_tpu.ops import (
             quantize_banded,
             quantize_block_sparse,
@@ -229,9 +230,8 @@ def main():
                              BandedSparseHaloLaplacian)):
             qop = quantize_sparse_halo(op, sample_x=sample)
         elif isinstance(op, DenseLaplacian):
-            # Round 5: every single-chip format has an int8 twin — the
-            # trained operator quantizes in place, whatever fmt="auto"
-            # picked (DESIGN.md §20).
+            # Every single-chip format has an int8 twin: the trained
+            # operator quantizes in place, whatever fmt="auto" picked.
             qop = quantize_dense(op, sample_x=sample)
         elif isinstance(op, BlockSparseLaplacian):
             qop = quantize_block_sparse(op, sample_x=sample)

@@ -23,7 +23,7 @@ def setup():
 
 class TestBandedHalo:
     def test_ragged_default_matches_uniform_exactly(self, setup):
-        """The ragged per-shard layout (DESIGN.md §19, the default) and
+        """The ragged per-shard layout (the default) and
         the uniform layout are the same blocks in the same order — their
         chains must agree to accumulation-order precision."""
         L, mesh, op, _ = setup
@@ -299,9 +299,9 @@ class TestChebyChain:
 
 class TestQuantBandedHalo:
     """Int8 multi-chip serving: the quantized sharded operator
-    (parallel.banded_halo.QuantBandedHaloLaplacian; DESIGN.md §13).
+    (parallel.banded_halo.QuantBandedHaloLaplacian; DESIGN.md §11).
     The halo ppermutes carry int8 payloads — half the bf16 operator's
-    ICI bytes per hop."""
+    bytes per hop."""
 
     def test_chain_bitexact_vs_single_chip(self, setup):
         """The sharded int8 recurrence runs the same integer arithmetic
@@ -313,7 +313,7 @@ class TestQuantBandedHalo:
 
         L, mesh, op, ref = setup
         qop = quantize_banded_halo(op, sample_x=3.0)
-        sop = device_laplacian(L, fmt="banded", use_pallas=False,
+        sop = device_laplacian(L, fmt="banded",
                                dtype=jnp.float32)
         sq = quantize_banded(sop, sample_x=3.0)
         assert np.isclose(qop.band_scale, sq.band_scale, rtol=1e-6)
@@ -401,7 +401,7 @@ class TestQuantBandedHalo:
 
     def test_halo_payload_is_int8(self, setup):
         """The exchanged halo must be int8 (half the bf16 bytes on the
-        ICI ring): check the ppermute operand dtype in the jaxpr."""
+        neighbour exchange): check the ppermute operand dtype in the jaxpr."""
         from cnn_graph_tpu.parallel import quantize_banded_halo
 
         L, mesh, op, ref = setup

@@ -62,7 +62,7 @@ class TestProfiling:
 
 class TestHaloScaling:
     def test_halo_traffic_beats_all_gather_as_shards_grow(self):
-        """Scaling-efficiency proxy: per-hop ICI bytes per shard.  The
+        """Scaling-efficiency proxy: per-hop exchanged bytes per shard.  The
         all-gather formulation moves the full activation set to every
         shard; the halo plan moves only boundary rows, which for a planar
         (city-like) graph stays near-constant as shards grow — the

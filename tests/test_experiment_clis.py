@@ -1,11 +1,19 @@
 """Smoke tests for the experiment CLIs: --help works for every driver
 (imports resolve, arg wiring is valid) without touching any device."""
 
+import os
 import subprocess
 import sys
 from pathlib import Path
 
 import pytest
+
+
+def _cpu_env(**extra):
+    """Environment for a CPU-only child run of an experiment script."""
+    return {"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
+            "HOME": os.environ.get("HOME", ""), "JAX_PLATFORMS": "cpu",
+            **extra}
 
 EXPERIMENTS = sorted(
     p.name for p in (Path(__file__).parent.parent / "experiments").glob("*.py")
@@ -19,8 +27,7 @@ def test_cli_help(script):
         [sys.executable, f"experiments/{script}", "--help"],
         capture_output=True, text=True, timeout=120,
         cwd=Path(__file__).parent.parent,
-        env={"PATH": "/usr/bin:/bin", "CNN_GRAPH_CPU": "1",
-             "JAX_PLATFORMS": "cpu", "HOME": "/root"},
+        env=_cpu_env(),
     )
     assert proc.returncode == 0, proc.stderr[-500:]
     assert "usage" in proc.stdout.lower()
@@ -68,8 +75,7 @@ def test_mnist_cli_real_data_path_end_to_end(tmp_path):
          "--batch-size", "8", "--K", "5"],
         capture_output=True, text=True, timeout=600,
         cwd=Path(__file__).parent.parent,
-        env={"PATH": "/usr/bin:/bin", "CNN_GRAPH_CPU": "1",
-             "JAX_PLATFORMS": "cpu", "HOME": "/root"},
+        env=_cpu_env(),
     )
     assert proc.returncode == 0, proc.stderr[-800:]
     assert "test" in proc.stdout, proc.stdout[-500:]
@@ -84,9 +90,8 @@ def test_mnist_cli_mesh_data_parallel():
          "--K", "3", "--mesh-data", "8"],
         capture_output=True, text=True, timeout=600,
         cwd=Path(__file__).parent.parent,
-        env={"PATH": "/usr/bin:/bin", "CNN_GRAPH_CPU": "1",
-             "JAX_PLATFORMS": "cpu", "HOME": "/root",
-             "XLA_FLAGS": "--xla_force_host_platform_device_count=8"},
+        env=_cpu_env(
+            XLA_FLAGS="--xla_force_host_platform_device_count=8"),
     )
     assert proc.returncode == 0, proc.stderr[-800:]
     assert "data-parallel training over mesh" in proc.stdout

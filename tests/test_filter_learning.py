@@ -105,7 +105,7 @@ def test_spline_and_chebyshev_agree_at_matched_K(spectral_setup):
     lmax = float(lam.max())
 
     # Chebyshev filter trained through the device op.
-    op = device_laplacian(s["L"], lmax=lmax, fmt="dense", use_pallas=False)
+    op = device_laplacian(s["L"], lmax=lmax, fmt="dense")
 
     def cheby_loss(w):
         return jnp.mean((cheby_conv(X, op, w) - Y) ** 2)

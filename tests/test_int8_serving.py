@@ -1,8 +1,7 @@
 """Int8 serving path, end to end: the quantized operator plugged into
 ``ops.cheby_conv`` (dynamic runtime activation scale) and through the
 user-facing models — NodeClassifier and ChebNet inference must track
-their f32 results within serving tolerances (VERDICT round-2 task 1;
-DESIGN.md §11).  The reference's serving hot path is the filter op,
+their f32 results within serving tolerances (DESIGN.md §11).  The reference's serving hot path is the filter op,
 lib/filter.py:45-95."""
 
 import jax
@@ -44,7 +43,7 @@ def planted_graph():
 @pytest.fixture(scope="module")
 def qpair(planted_graph):
     L, feats, labels, n_classes = planted_graph
-    op = device_laplacian(L, fmt="banded", use_pallas=False)
+    op = device_laplacian(L, fmt="banded")
     qop = quantize_banded(op, sample_x=float(np.abs(feats).max()))
     return op, qop
 
@@ -85,7 +84,7 @@ class TestModelServing:
                                                  qpair):
         """Train a NodeClassifier in f32, swap the operator for int8 at
         inference: test accuracy must move < 0.5% absolute (the serving
-        acceptance bar from VERDICT task 1)."""
+        acceptance bar)."""
         import optax
 
         from cnn_graph_tpu.models import NodeClassifier
@@ -157,7 +156,7 @@ class TestModelServing:
         graphs_, perm = coarsening.coarsen(W, levels=2, seed=1,
                                            verbose=False)
         Ls = [gc.laplacian(g, normalized=True) for g in graphs_]
-        op_f = device_laplacian(Ls[0], fmt="banded", use_pallas=False)
+        op_f = device_laplacian(Ls[0], fmt="banded")
         qop = quantize_banded(op_f, sample_x=3.0)
 
         rng = np.random.default_rng(5)
@@ -250,7 +249,7 @@ class TestQuantizeHelper:
         graphs_, _ = coarsening.coarsen(W, levels=2, seed=1, verbose=False)
         Ls = [gc.laplacian(g, normalized=True) for g in graphs_]
         net = ChebNet(
-            [device_laplacian(Ls[0], fmt="banded", use_pallas=False)]
+            [device_laplacian(Ls[0], fmt="banded")]
             + [device_laplacian(l, fmt="dense") for l in Ls[1:]],
             F=[8], K=[6], p=[1], M=[3])
         qnet = common.quantize_model_operators(net, sample_x=3.0)

@@ -131,8 +131,7 @@ class TestSparseHaloLaplacian:
 
 class TestBandedSparseHalo:
     """Per-shard banded sparse-halo (fmt='banded'): same exchange plan
-    as BSR, banded kernel per shard after a private column ordering
-    (VERDICT round-2 task 8)."""
+    as BSR, banded pass per shard after a private column ordering."""
 
     @pytest.mark.parametrize("nodes", [2, 4])
     def test_matmul_and_hop_match_dense(self, community_graph, nodes):
@@ -190,14 +189,14 @@ class TestBandedSparseHalo:
 
 
 class TestQuantSparseHalo:
-    """Int8 twins of the sparse-halo operators (DESIGN.md §13): same
+    """Int8 twins of the sparse-halo operators (DESIGN.md §11): same
     exchange plan, int8 carries over the all_to_all halo, integer
     arithmetic identical to the single-chip quantized chain."""
 
     def _single_chip_chain(self, L, xq_full, K):
         from cnn_graph_tpu.ops import quantize_banded
 
-        sop = device_laplacian(L, fmt="banded", use_pallas=False,
+        sop = device_laplacian(L, fmt="banded",
                                dtype=jnp.float32)
         sq = quantize_banded(sop, sample_x=3.0)
 

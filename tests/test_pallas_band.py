@@ -1,16 +1,28 @@
-"""Banded sliding-window SpMM: packing invariants, XLA-fallback and
-Pallas-interpret parity against scipy, custom-VJP gradients, and the
-auto-format selection (compiled path exercised on real TPU by bench.py)."""
+"""Banded block SpMM: packing invariants, XLA-path and kernel
+(Pallas Triton route, interpret mode) parity against scipy, custom-VJP
+gradients, and the auto-format selection.  The last section runs the
+kernel over float32, bfloat16 and int8 bands, uniform and ragged
+layouts, SpMM / hop / hop with the adjoint injection, column padding and
+several column tiles, and the donated hop, against the XLA paths of the
+same operators.  The compiled kernel runs on the GPU in
+``chip_smoke.py`` and in the ``gpu``-marked test."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from cnn_graph_tpu.data.synthetic import city_graph
 from cnn_graph_tpu.graphs import construction as gc
-from cnn_graph_tpu.ops import device_laplacian
-from cnn_graph_tpu.ops.laplacian import BandedLaplacian, band_stats
-from cnn_graph_tpu.ops.pallas_band import band_spmm
+from cnn_graph_tpu.ops import device_laplacian, quantize_banded
+from cnn_graph_tpu.ops.laplacian import BandedLaplacian, band_stats, quant_emit
+from cnn_graph_tpu.ops.pallas_band import (
+    _round_half_even,
+    band_spmm,
+    banded_call,
+    ragged_rows,
+    uniform_rows,
+)
 
 
 @pytest.fixture(scope="module")
@@ -31,19 +43,17 @@ def banded_graph():
 
 class TestBandPacking:
     def test_band_stats_invariants(self, banded_graph):
-        from cnn_graph_tpu.ops.pallas_band import ring_span
-
         base, W, n_blocks, mp = band_stats(banded_graph)
         n_cb = mp // 128
         assert np.all(np.diff(base) >= 0), "bases must be monotone"
         assert base.min() >= 0 and base.max() + W <= n_cb
-        assert ring_span(base, W, 4) >= W + 1
+        assert n_blocks <= len(base) * W
         coo = banded_graph.tocoo()
         brow, bcol = coo.row // 128, coo.col // 128
         assert np.all(base[brow] <= bcol) and np.all(bcol < base[brow] + W)
 
     def test_packed_band_reconstructs_matrix(self, banded_graph):
-        op = device_laplacian(banded_graph, fmt="banded", ragged=False, use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded", ragged=False)
         Lr = gc.rescale_laplacian(banded_graph, 2.0)
         band = np.asarray(op.band)
         base = np.asarray(op.base)
@@ -70,7 +80,7 @@ class TestBandPacking:
 
 class TestBandMatmul:
     def test_xla_fallback_matches_scipy(self, banded_graph):
-        op = device_laplacian(banded_graph, fmt="banded", use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         Lr = gc.rescale_laplacian(banded_graph, 2.0)
         rng = np.random.default_rng(1)
         X = rng.normal(size=(op.m_padded, 64)).astype(np.float32)
@@ -80,7 +90,7 @@ class TestBandMatmul:
         np.testing.assert_allclose(got[op.m:], 0.0, atol=1e-5)
 
     def test_pallas_interpret_matches_scipy(self, banded_graph):
-        op = device_laplacian(banded_graph, fmt="banded", use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         Lr = gc.rescale_laplacian(banded_graph, 2.0)
         rng = np.random.default_rng(2)
         X = rng.normal(size=(op.m_padded, 256)).astype(np.float32)
@@ -90,7 +100,7 @@ class TestBandMatmul:
 
     def test_pallas_column_padding(self, banded_graph):
         # C not a multiple of the tile.
-        op = device_laplacian(banded_graph, fmt="banded", use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         rng = np.random.default_rng(3)
         X = rng.normal(size=(op.m_padded, 200)).astype(np.float32)
         got = np.asarray(band_spmm(op, jnp.asarray(X), interpret=True))
@@ -99,24 +109,25 @@ class TestBandMatmul:
         np.testing.assert_allclose(got[: op.m], Lr @ X[: op.m], atol=1e-4)
 
     def test_pallas_multiple_column_tiles(self, banded_graph):
-        # col_tile < C forces the j grid dimension > 1 (ring refetch per
-        # stripe).
-        op = device_laplacian(banded_graph, fmt="banded", use_pallas=False)
+        # C above the float32 column tile (64) gives the column grid axis
+        # several programs.
+        op = device_laplacian(banded_graph, fmt="banded")
         rng = np.random.default_rng(4)
         X = rng.normal(size=(op.m_padded, 256)).astype(np.float32)
-        got = np.asarray(
-            band_spmm(op, jnp.asarray(X), col_tile=128, interpret=True)
-        )
+        got = np.asarray(banded_call(
+            op.band, op.base, op.rows, jnp.asarray(X), out_rows=op.m_padded,
+            max_width=op.band_width, interpret=True,
+        ))
         want = np.asarray(op.matmul(jnp.asarray(X)))
         np.testing.assert_allclose(got, want, atol=1e-4)
 
     def test_gradient_symmetric_adjoint(self, banded_graph):
-        op = device_laplacian(banded_graph, fmt="banded", use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         rng = np.random.default_rng(5)
         X = jnp.asarray(rng.normal(size=(op.m_padded, 128)).astype(np.float32))
 
         def f_pallas(x):
-            return jnp.sum(band_spmm(op, x, 512, True) ** 2)
+            return jnp.sum(band_spmm(op, x, True) ** 2)
 
         def f_xla(x):
             return jnp.sum(op.matmul(x) ** 2)
@@ -139,10 +150,8 @@ class TestAutoSelection:
 
         # A large unordered kNN graph: the block band spans nearly the
         # whole matrix, so auto must refuse banded (W > 32 blocks) — and
-        # because the occupied 128-blocks exceed 1/3 of all blocks, the
-        # full-rate dense matmul beats BSR's per-block DMA (measured
-        # 572 vs 828 us/spmm on the 10k-word 20NEWS graph; DESIGN.md
-        # §17), so auto picks dense when it fits the HBM budget ...
+        # because the occupied 128-blocks exceed 1/3 of all blocks, auto
+        # picks one dense matmul when it fits the memory budget ...
         rng = np.random.default_rng(6)
         z = rng.uniform(size=(6000, 2)).astype(np.float32)
         W = gc.knn_graph(z, k=6)
@@ -157,8 +166,7 @@ class TestAutoSelection:
     def test_cheby_conv_through_banded(self, banded_graph):
         from cnn_graph_tpu.ops import cheby_conv
 
-        op_band = device_laplacian(banded_graph, fmt="banded",
-                                   use_pallas=False)
+        op_band = device_laplacian(banded_graph, fmt="banded")
         op_dense = device_laplacian(banded_graph, fmt="dense")
         rng = np.random.default_rng(7)
         B, F, K, Fout = 4, 3, 5, 8
@@ -180,24 +188,24 @@ class TestFusedChebyHop:
     def test_hop_matches_unfused(self, banded_graph):
         from cnn_graph_tpu.ops.pallas_band import band_cheby_hop
 
-        op = device_laplacian(banded_graph, fmt="banded", use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         rng = np.random.default_rng(8)
         x1 = jnp.asarray(rng.normal(size=(op.m_padded, 256)), jnp.float32)
         x0 = jnp.asarray(rng.normal(size=(op.m_padded, 256)), jnp.float32)
-        got = np.asarray(band_cheby_hop(op, x1, x0, 512, True))
+        got = np.asarray(band_cheby_hop(op, x1, x0, interpret=True))
         want = np.asarray(2.0 * op.matmul(x1) - x0)
         np.testing.assert_allclose(got, want, atol=1e-4)
 
     def test_hop_gradients(self, banded_graph):
         from cnn_graph_tpu.ops.pallas_band import band_cheby_hop
 
-        op = device_laplacian(banded_graph, fmt="banded", use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         rng = np.random.default_rng(9)
         x1 = jnp.asarray(rng.normal(size=(op.m_padded, 128)), jnp.float32)
         x0 = jnp.asarray(rng.normal(size=(op.m_padded, 128)), jnp.float32)
 
         def f_pallas(x1, x0):
-            return jnp.sum(band_cheby_hop(op, x1, x0, 512, True) ** 2)
+            return jnp.sum(band_cheby_hop(op, x1, x0, interpret=True) ** 2)
 
         def f_ref(x1, x0):
             return jnp.sum((2.0 * op.matmul(x1) - x0) ** 2)
@@ -214,7 +222,7 @@ class TestFusedChebyHop:
         from cnn_graph_tpu.graphs.construction import chebyshev_basis
         from cnn_graph_tpu.ops import cheby_basis
 
-        op = device_laplacian(banded_graph, fmt="banded", use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         rng = np.random.default_rng(10)
         m = op.m
         x = np.zeros((2, op.m_padded, 3), np.float32)
@@ -229,21 +237,22 @@ class TestFusedChebyHop:
 class TestExtendedColumnMode:
     """banded_call's sharded-halo usage: window bases offset into an
     extended x (left/right halo rows), out_rows < x rows.  This is the
-    mode the BandedHaloLaplacian Pallas path runs per shard — exercised
+    mode the BandedHaloLaplacian kernel path runs per shard — exercised
     here in interpret mode against the unshifted kernel."""
 
     def test_shifted_base_matches_unshifted(self, banded_graph):
         from cnn_graph_tpu.ops.pallas_band import banded_call
 
-        op = device_laplacian(banded_graph, fmt="banded", ragged=False, use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded", ragged=False)
         rng = np.random.default_rng(11)
         C = 256
         x = rng.normal(size=(op.m_padded, C)).astype(np.float32)
+        flat = op.band.reshape(-1, 128, 128)
+        kw = dict(out_rows=op.m_padded, max_width=op.band_width,
+                  interpret=True)
 
-        want = np.asarray(banded_call(
-            op.band, op.base, jnp.asarray(x), ring=op.ring_slots,
-            G=op.rows_per_step, out_rows=op.m_padded, interpret=True,
-        ))
+        want = np.asarray(banded_call(flat, op.base, op.rows,
+                                      jnp.asarray(x), **kw))
 
         # Prepend OFF zero block-rows to x and shift every window base:
         # identical math through the extended-column path.
@@ -252,11 +261,9 @@ class TestExtendedColumnMode:
                 [rng.normal(size=(off * 128, C)).astype(np.float32), x]
             )
             base_ext = np.asarray(op.base) + off
-            ring = int(op.ring_slots)  # span unchanged by a uniform shift
             got = np.asarray(banded_call(
-                op.band, jnp.asarray(base_ext.astype(np.int32)),
-                jnp.asarray(x_ext), ring=ring, G=op.rows_per_step,
-                out_rows=op.m_padded, interpret=True,
+                flat, jnp.asarray(base_ext.astype(np.int32)), op.rows,
+                jnp.asarray(x_ext), **kw,
             ))
             np.testing.assert_allclose(got, want, atol=1e-4,
                                        err_msg=f"offset {off}")
@@ -264,7 +271,7 @@ class TestExtendedColumnMode:
     def test_shifted_base_fused_hop(self, banded_graph):
         from cnn_graph_tpu.ops.pallas_band import banded_call
 
-        op = device_laplacian(banded_graph, fmt="banded", ragged=False, use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded", ragged=False)
         rng = np.random.default_rng(12)
         C, off = 128, 2
         x = rng.normal(size=(op.m_padded, C)).astype(np.float32)
@@ -274,9 +281,9 @@ class TestExtendedColumnMode:
         )
         base_ext = (np.asarray(op.base) + off).astype(np.int32)
         got = np.asarray(banded_call(
-            op.band, jnp.asarray(base_ext), jnp.asarray(x_ext),
-            jnp.asarray(x0), ring=int(op.ring_slots),
-            G=op.rows_per_step, out_rows=op.m_padded, interpret=True,
+            op.band.reshape(-1, 128, 128), jnp.asarray(base_ext), op.rows,
+            jnp.asarray(x_ext), jnp.asarray(x0), out_rows=op.m_padded,
+            max_width=op.band_width, interpret=True,
         ))
         want = np.asarray(2.0 * op.matmul(jnp.asarray(x)) - x0)
         np.testing.assert_allclose(got, want, atol=1e-4)
@@ -291,7 +298,7 @@ class TestQuantizedBand:
     def qsetup(self, banded_graph):
         from cnn_graph_tpu.ops import quantize_banded
 
-        op = device_laplacian(banded_graph, fmt="banded", ragged=False, use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded", ragged=False)
         rng = np.random.default_rng(13)
         x = rng.normal(size=(op.m_padded, 128)).astype(np.float32)
         x[op.m:] = 0
@@ -306,22 +313,20 @@ class TestQuantizedBand:
         # Global-scale int8 on Gaussian data: the max/RMS ratio (~4.4)
         # costs ~2 bits, so a single quant->spmm->dequant round trip
         # lands at ~6% RMS (input + output rounding); per-tensor-adaptive
-        # scales would halve it but cost 13% of the tap rate
-        # (DESIGN.md §11) — accepted for the serving path.
+        # scales would halve it at the price of per-tap rescaling —
+        # accepted for the serving path.
         rel = (np.linalg.norm(got[: op.m] - want[: op.m])
                / np.linalg.norm(want[: op.m]))
         assert rel < 0.08, rel
 
     def test_kernel_interpret_matches_fallback_bitexact(self, qsetup):
-        from cnn_graph_tpu.ops.pallas_band import banded_call
-
         op, qop, x = qsetup
         xq = qop.quantize(jnp.asarray(x))
         x0q = qop.quantize(jnp.asarray(0.3 * x))
         got = np.asarray(banded_call(
-            qop.band, qop.base, xq, x0q, ring=qop.ring_slots,
-            G=qop.rows_per_step, out_rows=qop.m_padded, interpret=True,
-            band_scale=qop.band_scale,
+            qop.band.reshape(-1, 128, 128), qop.base, qop.rows, xq, x0q,
+            out_rows=qop.m_padded, max_width=qop.band_width,
+            band_scale=qop.band_scale, interpret=True,
         ))
         want = np.asarray(qop._call(xq, x0q))  # XLA integer fallback
         np.testing.assert_array_equal(got, want)
@@ -361,19 +366,16 @@ class TestQuantizedBand:
 
 
 class TestRaggedBand:
-    """Ragged per-super-step band widths (pack_banded_ragged +
-    _kernel_ragged): packing reconstruction, fallback-vs-scipy,
-    interpret-kernel parity, gradients, and the quantized twin.
-    DESIGN.md §12."""
+    """Ragged per-super-step band widths (pack_banded_ragged): packing
+    reconstruction, XLA-path-vs-scipy, interpret-kernel parity,
+    gradients, and the quantized twin."""
 
     @pytest.fixture(scope="class")
     def rop(self, banded_graph):
-        return device_laplacian(banded_graph, fmt="banded",
-                                use_pallas=False)  # ragged is the default
+        return device_laplacian(banded_graph, fmt="banded")  # ragged is the default
 
     def test_ragged_is_default_and_saves_blocks(self, banded_graph, rop):
-        uni = device_laplacian(banded_graph, fmt="banded", ragged=False,
-                               use_pallas=False)
+        uni = device_laplacian(banded_graph, fmt="banded", ragged=False)
         assert rop.levels, "banded default should pack ragged"
         assert rop.band.ndim == 3
         assert rop.band.shape[0] <= uni.band.shape[0] * uni.band.shape[1]
@@ -382,7 +384,7 @@ class TestRaggedBand:
         Lr = gc.rescale_laplacian(banded_graph, 2.0).toarray()
         br, bc = rop.block_shape
         G = rop.rows_per_step
-        offs, lvl_idx, _ = rop.sched
+        offs, lvl_idx = rop.sched
         band = np.asarray(rop.band)
         base = np.asarray(rop.base)
         dense = np.zeros((rop.m_padded, rop.m_padded), np.float32)
@@ -415,10 +417,10 @@ class TestRaggedBand:
         x = jnp.asarray(rng.normal(size=(rop.m_padded, C)), jnp.float32)
         x0 = jnp.asarray(rng.normal(size=(rop.m_padded, C)), jnp.float32)
         np.testing.assert_allclose(
-            np.asarray(band_spmm(rop, x, 512, True)),
+            np.asarray(band_spmm(rop, x, True)),
             np.asarray(rop.matmul(x)), atol=1e-4)
         np.testing.assert_allclose(
-            np.asarray(band_cheby_hop(rop, x, x0, 512, True)),
+            np.asarray(band_cheby_hop(rop, x, x0, interpret=True)),
             np.asarray(2.0 * rop.matmul(x) - x0), atol=1e-4)
 
     def test_ragged_gradients_symmetric_adjoint(self, rop):
@@ -430,10 +432,10 @@ class TestRaggedBand:
         x0 = jnp.asarray(rng.normal(size=(rop.m_padded, C)), jnp.float32)
 
         def f(x, x0):
-            return jnp.sum(band_cheby_hop(rop, x, x0, 512, True) ** 2)
+            return jnp.sum(band_cheby_hop(rop, x, x0, interpret=True) ** 2)
 
         gx, gx0 = jax.grad(f, argnums=(0, 1))(x, x0)
-        g = 2.0 * band_cheby_hop(rop, x, x0, 512, True)
+        g = 2.0 * band_cheby_hop(rop, x, x0, interpret=True)
         np.testing.assert_allclose(np.asarray(gx),
                                    np.asarray(2.0 * rop.matmul(g)),
                                    atol=1e-3)
@@ -442,7 +444,6 @@ class TestRaggedBand:
 
     def test_ragged_quantized_bitexact_and_conv(self, banded_graph, rop):
         from cnn_graph_tpu.ops import cheby_conv, quantize_banded
-        from cnn_graph_tpu.ops.pallas_band import banded_call_ragged
 
         rng = np.random.default_rng(24)
         qop = quantize_banded(rop, sample_x=3.0)
@@ -451,12 +452,10 @@ class TestRaggedBand:
             rng.normal(size=(rop.m_padded, 128)).astype(np.float32)))
         x0q = qop.quantize(jnp.asarray(
             rng.normal(size=(rop.m_padded, 128)).astype(np.float32)))
-        got = np.asarray(banded_call_ragged(
-            qop.band, qop.base, jnp.asarray(np.asarray(qop.sched,
-                                                       np.int32)),
-            xq, x0q, levels=qop.levels, ring=qop.ring_slots,
-            G=qop.rows_per_step, out_rows=qop.m_padded, interpret=True,
-            band_scale=qop.band_scale))
+        got = np.asarray(banded_call(
+            qop.band, qop.base, qop.rows, xq, x0q, out_rows=qop.m_padded,
+            max_width=qop.band_width, band_scale=qop.band_scale,
+            interpret=True))
         want = np.asarray(qop._call(xq, x0q))
         np.testing.assert_array_equal(got, want)
 
@@ -472,16 +471,14 @@ class TestRaggedBand:
 
 class TestAdjointChainConv:
     """cheby_conv_banded: the streaming banded conv whose backward runs
-    the fused three-term ADJOINT recurrence (band_cheby_hop_c, one
-    kernel pass per hop) instead of autodiff's un-fused SpMM + two
-    elementwise passes.  VERDICT round-3 next-step #2."""
+    the fused three-term ADJOINT recurrence (cheby_hop_c, one kernel
+    pass per hop on the GPU) instead of autodiff's un-fused SpMM + two
+    elementwise passes."""
 
     @pytest.fixture(scope="class")
     def ops_pair(self, banded_graph):
-        rop = device_laplacian(banded_graph, fmt="banded",
-                               use_pallas=False)
-        uop = device_laplacian(banded_graph, fmt="banded", ragged=False,
-                               use_pallas=False)
+        rop = device_laplacian(banded_graph, fmt="banded")
+        uop = device_laplacian(banded_graph, fmt="banded", ragged=False)
         dref = device_laplacian(banded_graph, fmt="dense")
         return rop, uop, dref
 
@@ -495,10 +492,7 @@ class TestAdjointChainConv:
         x0 = jnp.asarray(rng.normal(size=(rop.m_padded, C)), jnp.float32)
         c = jnp.asarray(rng.normal(size=(rop.m_padded, C)), jnp.float32)
         for op in (rop, uop):
-            import dataclasses
-
-            pal = dataclasses.replace(op, use_pallas=True)
-            got = np.asarray(band_cheby_hop_c(pal, x1, x0, c,
+            got = np.asarray(band_cheby_hop_c(op, x1, x0, c,
                                               interpret=True))
             want = np.asarray(2.0 * op.matmul(x1) - x0 + c)
             np.testing.assert_allclose(got, want, atol=1e-4)
@@ -552,8 +546,7 @@ class TestAdjointChainConv:
 
         from cnn_graph_tpu.models import NodeClassifier
 
-        op = device_laplacian(banded_graph, fmt="banded",
-                              use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         rng = np.random.default_rng(33)
         model = NodeClassifier(op, input_features=4, num_classes=3,
                                hidden=[8], K=4)
@@ -602,17 +595,15 @@ class TestAdjointChainConv:
 
 class TestChebyFinals:
     """cheby_finals: the donated double-hop chain driver (final-carry
-    recurrence behind the throughput benches) against the NumPy oracle,
-    and the in-place (input_output_aliases) kernel path in interpret
-    mode."""
+    recurrence behind the benchmarks) against the NumPy oracle, and the
+    in-place (input_output_aliases) kernel path in interpret mode."""
 
     @pytest.mark.parametrize("K", [1, 2, 5, 6])
     def test_matches_oracle_float(self, banded_graph, K):
         from cnn_graph_tpu.graphs.construction import chebyshev_basis
         from cnn_graph_tpu.ops import cheby_finals
 
-        op = device_laplacian(banded_graph, fmt="banded",
-                              use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         rng = np.random.default_rng(21)
         x = np.zeros((op.m_padded, 16), np.float32)
         x[: op.m] = rng.normal(size=(op.m, 16))
@@ -626,8 +617,7 @@ class TestChebyFinals:
     def test_quant_path_matches_unrolled(self, banded_graph, K):
         from cnn_graph_tpu.ops import cheby_finals, quantize_banded
 
-        op = device_laplacian(banded_graph, fmt="banded",
-                              use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         rng = np.random.default_rng(22)
         x = np.zeros((op.m_padded, 16), np.float32)
         x[: op.m] = rng.normal(size=(op.m, 16))
@@ -648,176 +638,189 @@ class TestChebyFinals:
         np.testing.assert_array_equal(got, want)  # same int arithmetic
 
     def test_donated_kernel_matches_undonated(self, banded_graph):
-        from cnn_graph_tpu.ops.pallas_band import banded_call
-
-        op = device_laplacian(banded_graph, fmt="banded", ragged=False,
-                              use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded", ragged=False)
         rng = np.random.default_rng(23)
         C = 128
         x = rng.normal(size=(op.m_padded, C)).astype(np.float32)
         x0 = rng.normal(size=(op.m_padded, C)).astype(np.float32)
-        kw = dict(ring=op.ring_slots, G=op.rows_per_step,
-                  out_rows=op.m_padded, interpret=True)
+        kw = dict(out_rows=op.m_padded, max_width=op.band_width,
+                  interpret=True)
+        flat = op.band.reshape(-1, 128, 128)
         want = np.asarray(banded_call(
-            op.band, op.base, jnp.asarray(x), jnp.asarray(x0), **kw))
+            flat, op.base, op.rows, jnp.asarray(x), jnp.asarray(x0), **kw))
         got = np.asarray(banded_call(
-            op.band, op.base, jnp.asarray(x), jnp.asarray(x0),
+            flat, op.base, op.rows, jnp.asarray(x), jnp.asarray(x0),
             donate_x0=True, **kw))
         np.testing.assert_allclose(got, want, atol=1e-5)
 
     def test_donated_ragged_kernel_matches(self, banded_graph):
-        from cnn_graph_tpu.ops.pallas_band import banded_call_ragged
-
-        op = device_laplacian(banded_graph, fmt="banded",
-                              use_pallas=False)
+        op = device_laplacian(banded_graph, fmt="banded")
         assert op.levels, "fixture should pack ragged by default"
         rng = np.random.default_rng(24)
         C = 128
         x = rng.normal(size=(op.m_padded, C)).astype(np.float32)
         x0 = rng.normal(size=(op.m_padded, C)).astype(np.float32)
-        sched = jnp.asarray(np.asarray(op.sched, np.int32))
-        kw = dict(levels=op.levels, ring=op.ring_slots,
-                  G=op.rows_per_step, out_rows=op.m_padded,
+        kw = dict(out_rows=op.m_padded, max_width=op.band_width,
                   interpret=True)
-        want = np.asarray(banded_call_ragged(
-            op.band, op.base, sched, jnp.asarray(x), jnp.asarray(x0),
+        want = np.asarray(banded_call(
+            op.band, op.base, op.rows, jnp.asarray(x), jnp.asarray(x0),
             **kw))
-        got = np.asarray(banded_call_ragged(
-            op.band, op.base, sched, jnp.asarray(x), jnp.asarray(x0),
+        got = np.asarray(banded_call(
+            op.band, op.base, op.rows, jnp.asarray(x), jnp.asarray(x0),
             donate_x0=True, **kw))
         np.testing.assert_allclose(got, want, atol=1e-5)
 
 
-class TestPrefetchAhead:
-    """The PREFETCH_AHEAD parameterization (probe mode 'pa'): deeper
-    band-slab pipelines must be value-identical — only the DMA schedule
-    changes."""
+# ---- the kernel over dtypes, layouts and modes (interpret mode) ----
 
-    @pytest.mark.parametrize("pa", [2, 3])
-    def test_deeper_pipeline_matches_default(self, banded_graph, pa):
-        import dataclasses
+BS = 32  # small blocks keep the interpreter fast
 
-        from cnn_graph_tpu.ops.pallas_band import (
-            banded_call_ragged, ring_span,
-        )
 
-        rop = device_laplacian(banded_graph, fmt="banded",
-                               use_pallas=False)
-        rng = np.random.default_rng(40)
-        C = 128
-        x = jnp.asarray(rng.normal(size=(rop.m_padded, C)), jnp.float32)
-        x0 = jnp.asarray(rng.normal(size=(rop.m_padded, C)), jnp.float32)
+@pytest.fixture(scope="module")
+def ops():
+    """float32 operators of a 576-node city graph in 32-blocks, ragged
+    (several width levels) and uniform."""
+    L, _ = city_graph(24, k=8, seed=0)
+    rag = device_laplacian(L, fmt="banded", block_size=BS, rows_per_step=2)
+    uni = device_laplacian(L, fmt="banded", block_size=BS, ragged=False)
+    assert len(rag.levels) >= 2, rag.levels
+    return {"ragged": rag, "uniform": uni}
 
-        base = np.asarray(rop.base, np.int64)
-        hw = np.asarray(rop.sched[2], np.int64)
-        nsb = len(hw)
-        G = rop.rows_per_step
-        started = hw[np.minimum(np.arange(nsb) + pa, nsb - 1)]
-        ring = int((started - base[np.arange(nsb) * G]).max()) + 1
-        sched = jnp.asarray(np.asarray(rop.sched, np.int32))
 
-        got = np.asarray(banded_call_ragged(
-            rop.band, rop.base, sched, x, x0, levels=rop.levels,
-            ring=ring, G=G, out_rows=rop.m_padded, interpret=True,
-            prefetch_ahead=pa))
-        want = np.asarray(2.0 * rop.matmul(x) - x0)
+def _typed(op, dtype):
+    if dtype == "int8":
+        return quantize_banded(op, sample_x=3.0)
+    return jax.tree.map(
+        lambda a: a.astype(dtype) if a.dtype == jnp.float32 else a, op)
+
+
+def _kernel(op, x, x0=None, c=None, **kw):
+    quant = hasattr(op, "band_scale")
+    return banded_call(
+        op.band.reshape(-1, BS, BS), op.base, op.rows, x, x0, c,
+        out_rows=op.m_padded, max_width=op.band_width,
+        band_scale=op.band_scale if quant else None, interpret=True, **kw)
+
+
+def _inputs(op, C, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    shape = (op.m_padded, C)
+    if dtype == "int8":
+        return [jnp.asarray(rng.integers(-100, 100, shape), jnp.int8)
+                for _ in range(3)]
+    return [jnp.asarray(rng.normal(size=shape), dtype) for _ in range(3)]
+
+
+def _xla(op, mode, x, x0, c):
+    if hasattr(op, "band_scale"):
+        return op.spmm_q(x) if mode == "spmm" else op.cheby_hop_q(x, x0)
+    y = op.matmul(x)
+    if mode == "spmm":
+        return y
+    y = 2.0 * y.astype(jnp.float32) - x0.astype(jnp.float32)
+    if mode == "hop_c":
+        y = y + c.astype(jnp.float32)
+    return y.astype(x.dtype)
+
+
+CASES = [(dt, mode) for dt in ("float32", "bfloat16", "int8")
+         for mode in ("spmm", "hop", "hop_c")
+         if not (dt == "int8" and mode == "hop_c")]
+
+
+# C=40 sits below every column tile (padded); C=160 spans several tiles
+# of every dtype (64 float32/int8, 128 bf16 columns) and pads the last.
+@pytest.mark.parametrize("C", [40, 160], ids=["pad", "tiles"])
+@pytest.mark.parametrize("layout", ["uniform", "ragged"])
+@pytest.mark.parametrize("dtype,mode", CASES)
+def test_kernel_matches_xla_path(ops, dtype, mode, layout, C):
+    op = _typed(ops[layout], dtype)
+    x, x0, c = _inputs(op, C, dtype)
+    args = {"spmm": (x,), "hop": (x, x0), "hop_c": (x, x0, c)}[mode]
+    got = np.asarray(_kernel(op, *args), np.float32)
+    want = np.asarray(_xla(op, mode, x, x0, c), np.float32)
+    assert got.shape == (op.m_padded, C)
+    if dtype == "int8":
+        np.testing.assert_array_equal(got, want)  # integer sums are exact
+    elif dtype == "bfloat16":
+        # Same float32 accumulation, another summation order, and one
+        # bf16 rounding of the output (8-bit mantissa).
+        np.testing.assert_allclose(got, want, rtol=2e-2,
+                                   atol=2e-2 * np.abs(want).max())
+    else:
         np.testing.assert_allclose(got, want, atol=1e-4)
 
-    def test_uniform_kernel_pa2(self, banded_graph):
-        from cnn_graph_tpu.ops.pallas_band import banded_call, ring_span
 
-        uop = device_laplacian(banded_graph, fmt="banded", ragged=False,
-                               use_pallas=False)
-        rng = np.random.default_rng(41)
-        C = 128
-        x = jnp.asarray(rng.normal(size=(uop.m_padded, C)), jnp.float32)
-        ring = ring_span(np.asarray(uop.base), uop.band.shape[1],
-                         uop.rows_per_step, pa=2)
-        got = np.asarray(banded_call(
-            uop.band, uop.base, x, ring=ring, G=uop.rows_per_step,
-            out_rows=uop.m_padded, interpret=True, prefetch_ahead=2))
-        want = np.asarray(uop.matmul(x))
-        np.testing.assert_allclose(got, want, atol=1e-4)
+@pytest.mark.parametrize("layout", ["uniform", "ragged"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
+def test_donated_hop_matches(ops, dtype, layout):
+    op = _typed(ops[layout], dtype)
+    x, x0, _ = _inputs(op, 64, dtype, seed=1)
+    want = np.asarray(_kernel(op, x, x0), np.float32)
+    got = np.asarray(jax.jit(lambda a, b: _kernel(op, a, b, donate_x0=True))(
+        x, x0), np.float32)
+    np.testing.assert_array_equal(got, want)
 
 
-class TestDeepKWindow:
-    """The deep-K window kernel variant (banded_call_dkw): one wide
-    [br, W_l*bc] MXU dot per block-row from a contiguous x window
-    (mirrored ring slots), replacing W_l separate taps.  Must be
-    bit-exact (int8) / accumulation-equal (float) with the ragged
-    tap-loop kernel's XLA oracle."""
+def test_row_metadata_layouts(ops):
+    """Uniform rows are (i * W, W); ragged rows walk each super-step's
+    flat slab, covering the band exactly once."""
+    uni, rag = ops["uniform"], ops["ragged"]
+    n, W = uni.band.shape[:2]
+    np.testing.assert_array_equal(np.asarray(uni.rows), uniform_rows(n, W))
+    rows = ragged_rows(rag.sched, rag.levels, rag.rows_per_step)
+    np.testing.assert_array_equal(np.asarray(rag.rows), rows)
+    off, w = rows
+    assert off[0] == 0 and np.all(off[1:] == off[:-1] + w[:-1])
+    assert off[-1] + w[-1] == rag.band.shape[0]
 
-    @pytest.fixture(scope="class")
-    def ragged_op(self):
-        from cnn_graph_tpu.data.synthetic import city_graph
 
-        L, _ = city_graph(96, k=8, seed=0)  # 9216 nodes, 3 levels
-        return device_laplacian(L, fmt="banded", dtype=jnp.float32,
-                                use_pallas=False)
+def test_round_half_even_matches_jnp_round():
+    grid = np.arange(-128, 128.5, 0.5, dtype=np.float32)
+    y = np.concatenate([grid, np.nextafter(grid, 200), np.nextafter(grid,
+                                                                    -200),
+                        np.random.default_rng(0).uniform(-128, 128, 4096)
+                        .astype(np.float32)])
+    got = np.asarray(jax.jit(_round_half_even)(y))
+    np.testing.assert_array_equal(got, np.round(y))
 
-    def _dkw_parts(self, o):
-        from cnn_graph_tpu.ops.pallas_band import pack_dkw_from_ragged
 
-        bands, sched = pack_dkw_from_ragged(
-            np.asarray(o.band), o.sched, o.levels, o.rows_per_step,
-            *o.block_shape,
-        )
-        return [jnp.asarray(b) for b in bands], jnp.asarray(sched)
+def test_int8_epilogue_is_quant_emit(ops):
+    """The kernel's int8 epilogue equals ``quant_emit`` on the exact
+    int32 accumulator, ties and saturation included."""
+    q = _typed(ops["uniform"], "int8")
+    x, x0, _ = _inputs(q, 48, "int8", seed=2)
+    dense = np.zeros((q.m_padded, q.m_padded), np.int64)
+    band = np.asarray(q.band)
+    for i, b in enumerate(np.asarray(q.base)):
+        for d in range(band.shape[1]):
+            c0 = (b + d) * BS
+            dense[i * BS:(i + 1) * BS, c0:c0 + BS] = band[i, d]
+    acc = jnp.asarray(dense @ np.asarray(x, np.int64), jnp.int32)
+    want = np.asarray(quant_emit(acc, q.band_scale, x0))
+    np.testing.assert_array_equal(np.asarray(_kernel(q, x, x0)), want)
 
-    def test_float_spmm_and_hop(self, ragged_op):
-        from cnn_graph_tpu.ops.pallas_band import banded_call_dkw
 
-        op = ragged_op
-        assert len(op.levels) >= 2, "fixture should be multi-level"
-        bands, sched = self._dkw_parts(op)
-        rng = np.random.default_rng(0)
-        X = jnp.asarray(rng.normal(size=(op.m_padded, 200)), jnp.float32)
-        X0 = jnp.asarray(rng.normal(size=X.shape), jnp.float32)
-        want = np.asarray(op.matmul(X))
-        got = np.asarray(banded_call_dkw(
-            bands, op.base, sched, X, levels=op.levels,
-            ring=op.ring_slots, G=op.rows_per_step,
-            out_rows=op.m_padded, interpret=True,
-        ))
-        np.testing.assert_allclose(got, want, atol=1e-4)
-        goth = np.asarray(banded_call_dkw(
-            bands, op.base, sched, X, X0, levels=op.levels,
-            ring=op.ring_slots, G=op.rows_per_step,
-            out_rows=op.m_padded, interpret=True,
-        ))
-        np.testing.assert_allclose(goth, 2 * got - np.asarray(X0),
-                                   atol=1e-4)
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_on_gpu(gpu):
+    """On the card: the compiled kernel (no interpreter) against the XLA
+    path at the city-graph shape, bf16 and int8."""
+    from cnn_graph_tpu.ops import laplacian as lap
 
-    def test_quant_bit_exact_and_c_injection(self, ragged_op):
-        import dataclasses
-
-        from cnn_graph_tpu.ops import quantize_banded
-        from cnn_graph_tpu.ops.pallas_band import banded_call_dkw
-
-        q = quantize_banded(ragged_op, sample_x=3.0)
-        q_fb = dataclasses.replace(q, use_pallas=False)
-        bands, sched = self._dkw_parts(q)
-        rng = np.random.default_rng(1)
-        X = jnp.asarray(rng.normal(size=(q.m_padded, 256)), jnp.float32)
-        xq, x0q = q.quantize(X), q.quantize(X * 0.5)
-        got = np.asarray(banded_call_dkw(
-            bands, q.base, sched, xq, x0q, levels=q.levels,
-            ring=q.ring_slots, G=q.rows_per_step, out_rows=q.m_padded,
-            band_scale=q.band_scale, interpret=True,
-        ))
-        want = np.asarray(q_fb.cheby_hop_q(xq, x0q))
-        assert np.array_equal(got, want)
-
-        # Float hop with the adjoint-chain c injection.
-        op = ragged_op
-        bands_f, sched_f = self._dkw_parts(op)
-        C = jnp.asarray(rng.normal(size=X.shape), jnp.float32)
-        X0 = X * 0.25
-        got_c = np.asarray(banded_call_dkw(
-            bands_f, op.base, sched_f, X, X0, C, levels=op.levels,
-            ring=op.ring_slots, G=op.rows_per_step,
-            out_rows=op.m_padded, interpret=True,
-        ))
-        want_c = 2 * np.asarray(op.matmul(X)) - np.asarray(X0) \
-            + np.asarray(C)
-        np.testing.assert_allclose(got_c, want_c, atol=1e-4)
+    L, _ = city_graph(64, k=8, seed=0)
+    op = device_laplacian(L, fmt="banded", dtype=jnp.bfloat16)
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.normal(size=(op.m_padded, 256)), jnp.bfloat16)
+    got = np.asarray(op.matmul(x), np.float32)
+    want = np.asarray(lap.band_windows(
+        op.band, op.base, op.sched, op.levels, op.rows_per_step,
+        op.block_shape, x, jnp.float32), np.float32)
+    np.testing.assert_allclose(got, want, rtol=2e-2,
+                               atol=2e-2 * np.abs(want).max())
+    q = quantize_banded(op, sample_x=3.0)
+    xq = q.quantize(x.astype(jnp.float32))
+    acc = lap.band_windows(q.band, q.base, q.sched, q.levels,
+                           q.rows_per_step, q.block_shape, xq, jnp.int32)
+    np.testing.assert_array_equal(np.asarray(q.spmm_q(xq)),
+                                  np.asarray(quant_emit(acc, q.band_scale,
+                                                        None)))

@@ -1,7 +1,7 @@
 """Serving layer: AOT compile + StableHLO export/load round-trips
 (cnn_graph_tpu/serve.py).  The reference has no serving layer (models
 die with their tf.Session, lib/graph_model.py:124-197); this is the
-TPU-native deployable-artifact story over the int8 path."""
+deployable-artifact story over the int8 path."""
 
 import os
 
@@ -22,7 +22,7 @@ def trained():
     z = gc.grid(20)
     W = gc.knn_graph(z, k=8)
     L = gc.laplacian(W, normalized=True)
-    op = device_laplacian(L, fmt="banded", use_pallas=False)
+    op = device_laplacian(L, fmt="banded")
     model = NodeClassifier(op, input_features=8, num_classes=4,
                            hidden=[16], K=4)
     params = model.init(jax.random.PRNGKey(0))
@@ -73,6 +73,60 @@ class TestExportLoad:
         assert ls.meta["int8"] is True
         assert ls.input_spec.shape == x.shape
 
+    def test_round_trip_needs_no_flatbuffers(self, trained, tmp_path,
+                                             monkeypatch):
+        """The artifact is written and read without ``Exported.serialize``
+        (its ``flatbuffers`` dependency is not installed everywhere)."""
+        import sys
+
+        model, params, x, _ = trained
+        monkeypatch.setitem(sys.modules, "flatbuffers", None)
+        cs = serve.compile_serving(model, params, x)
+        d = str(tmp_path / "artifact")
+        serve.export_serving(model, params, x, d)
+        np.testing.assert_array_equal(np.asarray(serve.load_serving(d)(x)),
+                                      np.asarray(cs(x)))
+
+    def test_load_refuses_another_jax_version(self, trained, tmp_path):
+        import json
+
+        model, params, x, _ = trained
+        d = str(tmp_path / "artifact")
+        serve.export_serving(model, params, x, d)
+        meta_path = os.path.join(d, "meta.json")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        meta["jax_version"] = "0.0.1"
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+        with pytest.raises(ValueError, match="re-export"):
+            serve.load_serving(d)
+
+    def test_load_refuses_the_older_format(self, trained, tmp_path):
+        """An artifact written by ``Exported.serialize`` (no calling
+        convention in meta.json) is refused with a re-export message."""
+        import json
+
+        model, params, x, _ = trained
+        d = str(tmp_path / "artifact")
+        serve.export_serving(model, params, x, d)
+        meta_path = os.path.join(d, "meta.json")
+        with open(meta_path) as f:
+            meta = json.load(f)
+        del meta["exported"], meta["jax_version"]
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+        with pytest.raises(ValueError, match="older format"):
+            serve.load_serving(d)
+
+    def test_loaded_artifact_is_inference_only(self, trained, tmp_path):
+        model, params, x, _ = trained
+        d = str(tmp_path / "artifact")
+        serve.export_serving(model, params, x, d, int8=False)
+        ls = serve.load_serving(d)
+        with pytest.raises(TypeError, match="inference-only"):
+            jax.grad(lambda v: ls(v).sum())(x)
+
     def test_export_matches_compiled(self, trained, tmp_path):
         model, params, x, _ = trained
         cs = serve.compile_serving(model, params, x)
@@ -88,7 +142,7 @@ class TestExportLoad:
         z = gc.grid(16)
         W = gc.knn_graph(z, k=8)
         L = gc.laplacian(W, normalized=True)
-        op = device_laplacian(L, fmt="banded", use_pallas=False,
+        op = device_laplacian(L, fmt="banded",
                               dtype=jnp.bfloat16)
         model = NodeClassifier(op, input_features=4, num_classes=3,
                                hidden=[], K=3)
@@ -113,7 +167,7 @@ class TestExportLoad:
         graphs_, _ = coarsening.coarsen(W, levels=2, seed=1, verbose=False)
         Ls = [gc.laplacian(g, normalized=True) for g in graphs_]
         net = ChebNet(
-            [device_laplacian(Ls[0], fmt="banded", use_pallas=False)]
+            [device_laplacian(Ls[0], fmt="banded")]
             + [device_laplacian(l, fmt="dense") for l in Ls[1:]],
             F=[8], K=[5], p=[1], M=[3])
         params = net.init(jax.random.PRNGKey(2))
@@ -148,7 +202,7 @@ class TestExportLoad:
 
     def test_int8_meta_reflects_actual_conversion(self, tmp_path):
         """Round 5: DENSE operators now have an int8 twin (the 20NEWS
-        auto-format, DESIGN.md §17/§20), so a dense-operator model
+        auto-format, DESIGN.md §14), so a dense-operator model
         converts and the metadata must record it; a BCOO model still
         passes through unchanged and the metadata must say so."""
         z = gc.grid(12)
@@ -186,7 +240,7 @@ class TestExportLoad:
         from cnn_graph_tpu.models import GConvForecaster
 
         L, _ = city_graph(12, k=8, seed=0)  # 144 regions
-        op = device_laplacian(L, fmt="banded", use_pallas=False,
+        op = device_laplacian(L, fmt="banded",
                               rescale=True)
         model = GConvForecaster(op, seq_closeness=4, seq_period=2,
                                 seq_trend=2, variant="glstm_gconv",

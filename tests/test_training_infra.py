@@ -184,8 +184,7 @@ class TestGraphArraysThreading:
         z = rng.uniform(size=(3000, 2)).astype(np.float32)
         W = gc.knn_graph(z, k=4)
         L = gc.laplacian(W, normalized=True)
-        op = device_laplacian(L, fmt="bsr", block_size=128,
-                              use_pallas=False)  # ~several MB of blocks
+        op = device_laplacian(L, fmt="bsr", block_size=128)  # ~several MB of blocks
         model = ResGNN(op, input_features=2, K=2, nfilter=4,
                        nres_layer_count=1)
         trainer = Trainer(model, TrainConfig(batch_size=4), "regression")
@@ -300,8 +299,7 @@ class TestMeshDataParallel:
 
 
 class TestMeshDpTp:
-    """Node-sharded TRAINING through the user-facing Trainer (VERDICT
-    round-4 weak #3): a model over a BandedHaloLaplacian, driven by
+    """Node-sharded TRAINING through the user-facing Trainer: a model over a BandedHaloLaplacian, driven by
     ``Trainer.fit`` on a dp x tp mesh — batches shard over 'data',
     the operator's shard_map partitions Laplacian rows + activations
     over 'nodes'.  Must match the single-device trainer over the
@@ -338,9 +336,8 @@ class TestMeshDpTp:
         mesh = make_mesh(data=n // nodes, nodes=nodes)
         L, _ = city_graph(32, k=8, seed=0)  # 1024 nodes, bandable
 
-        hop = banded_halo_laplacian(L, mesh, rows_per_step=1,
-                                    use_pallas=False)
-        op0 = device_laplacian(L, fmt="banded", use_pallas=False,
+        hop = banded_halo_laplacian(L, mesh, rows_per_step=1)
+        op0 = device_laplacian(L, fmt="banded",
                                ragged=False, rows_per_step=1)
 
         tr0, hist0, loss0 = self._fit(op0, None)

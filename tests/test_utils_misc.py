@@ -91,7 +91,7 @@ def _xdr_workspace(bindings):
 
 class TestRData:
     """Pure-python RData reader: the conversion EXECUTES on hand-built
-    workspace bytes (VERDICT round-2 missing #4) — byte layout per R's
+    workspace bytes — byte layout per R's
     XDR serialization, matching loadRData.py:13-25 semantics."""
 
     def test_workspace_roundtrip_to_mat(self, tmp_path):
@@ -293,19 +293,20 @@ class TestMetricsLoggerParams:
 
 
 class TestRoofline:
+    KIND = "NVIDIA H100 80GB HBM3"
+
     def test_spmm_roofline_banded(self):
         from cnn_graph_tpu.data.synthetic import city_graph
         from cnn_graph_tpu.ops import device_laplacian
         from cnn_graph_tpu.utils.profiling import spmm_roofline
 
         L, _ = city_graph(20, k=6, seed=0)
-        op = device_laplacian(L, fmt="banded", use_pallas=False)
-        r = spmm_roofline(op, seconds_per_spmm=1e-3, feature_width=512)
-        assert r["bound"] in ("hbm", "mxu")
+        op = device_laplacian(L, fmt="banded")
+        r = spmm_roofline(op, seconds_per_spmm=1e-3, feature_width=512,
+                          device_kind=self.KIND)
+        assert r["bound"] in ("memory", "compute")
         assert 0 < r["achieved_frac_of_sol"] <= 1.5
         assert 0 < r["useful_edge_flops_frac"] <= 1.0
-        # The measured 50k-node config: 780us vs its bound must land
-        # in a sane fraction (regression-guards the formula, not the hw).
         assert r["sol_us"] < 1e3
 
     def test_spmm_roofline_dense_and_bsr(self):
@@ -320,6 +321,45 @@ class TestRoofline:
         W = gc.knn_graph(z, k=4)
         L = gc.laplacian(W, normalized=True)
         for fmt in ("dense", "bsr"):
-            op = device_laplacian(L, fmt=fmt, use_pallas=False)
-            r = spmm_roofline(op, 1e-4, 128)
+            op = device_laplacian(L, fmt=fmt)
+            r = spmm_roofline(op, 1e-4, 128, device_kind=self.KIND)
             assert r["flops"] > 0 and r["bytes"] > 0
+
+    def test_peak_table_h100_datasheet(self):
+        from cnn_graph_tpu.utils.profiling import device_peaks
+
+        p = device_peaks(self.KIND)
+        assert p["flops"]["bfloat16"] == 989e12
+        assert p["flops"]["int8"] == 1979e12
+        assert p["flops"]["float32"] == 495e12
+        assert p["mem_bytes_per_s"] == 3.35e12
+        assert "data sheet" in p["source"]
+
+    @pytest.mark.parametrize("kind", ["cpu", "NVIDIA H200", "NVIDIA A100"])
+    def test_unknown_device_kind_raises(self, kind):
+        from cnn_graph_tpu.ops import device_laplacian
+        from cnn_graph_tpu.utils.profiling import device_peaks, spmm_roofline
+
+        with pytest.raises(ValueError, match="no peak rates"):
+            device_peaks(kind)
+        L = gc.laplacian(gc.knn_graph(gc.grid(6), k=4), normalized=True)
+        with pytest.raises(ValueError, match="no peak rates"):
+            spmm_roofline(device_laplacian(L, fmt="dense"), 1e-4, 8,
+                          device_kind=kind)
+
+
+class TestTimeSteady:
+    def test_reports_first_call_and_median(self):
+        import jax
+        import jax.numpy as jnp
+
+        from cnn_graph_tpu.utils.profiling import time_steady
+
+        calls = []
+
+        def f(x):
+            calls.append(1)
+            return jax.jit(lambda v: v * 2.0)(x)
+
+        first, med = time_steady(f, jnp.ones(4), reps=3)
+        assert len(calls) == 4 and first > 0 and med > 0
